@@ -20,3 +20,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running end-to-end test (subprocess meshes, "
         "training loops)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written "
+        "kernels); skips without one")

@@ -1,0 +1,22 @@
+"""repro_torch.index — build-plan -> CHL-index artifact API::
+
+    from repro_torch.index import BuildPlan, CHLIndex, build
+
+    idx = build(g, rank, BuildPlan(algo="plant"))   # on the card
+    idx.query(u, v)
+    idx.serve(mode="qlsn")
+    idx.save("run/index")
+    idx = CHLIndex.load("run/index")
+"""
+
+from repro_torch.index.artifact import CHLIndex, rank_hash
+from repro_torch.index.build import build
+from repro_torch.index.plan import ALGOS, DISTRIBUTED_ALGOS, BuildPlan
+from repro_torch.index.report import BuildReport, OverflowEvent, SuperstepStat
+from repro_torch.index.store import (CorruptArtifactError, DenseStore,
+                                     LabelStore)
+
+__all__ = ["ALGOS", "BuildPlan", "BuildReport", "CHLIndex",
+           "CorruptArtifactError", "DISTRIBUTED_ALGOS", "DenseStore",
+           "LabelStore", "OverflowEvent", "SuperstepStat", "build",
+           "rank_hash"]

@@ -1,0 +1,56 @@
+"""`LabelStore` — the label-residency protocol behind ``CHLIndex``.
+
+Everything outside ``index/store/`` (artifact save/load, serving) talks
+to this protocol, never to a backend's internal arrays. This slice
+ports the dense backend; the sharded, spill and compressed backends of
+the reference are still to port.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Protocol, Tuple
+
+import numpy as np
+
+
+class CorruptArtifactError(ValueError):
+    """An on-disk index artifact fails integrity verification —
+    checksum mismatch, truncated shard npz, label counts that contradict
+    the manifest. Subclasses ``ValueError``; catch it to tell corruption
+    from misuse (wrong rank, wrong store kind)."""
+
+
+class LabelStore(Protocol):
+    """What ``CHLIndex`` and ``repro_torch.serve`` require of a store."""
+
+    kind: str
+
+    @property
+    def n(self) -> int:
+        ...
+
+    @property
+    def num_shards(self) -> int:
+        ...
+
+    @property
+    def total_labels(self) -> int:
+        ...
+
+    def query(self, u, v) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched PPSD: (distance f32 [Q], witnessing hub i32 [Q];
+        +inf / -1 when the label sets are disjoint)."""
+        ...
+
+    def to_table(self):
+        ...
+
+    def shard_arrays(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        """Yield ``(k, {"hubs", "dist", "count"})`` per shard as host
+        arrays — the save path."""
+        ...
+
+
+def shard_filename(k: int) -> str:
+    """On-disk name of shard ``k`` of an artifact."""
+    return f"shard_{k}.npz"

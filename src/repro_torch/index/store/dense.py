@@ -1,0 +1,66 @@
+"""`DenseStore` — one label table resident on one device.
+
+Queries gather the endpoints' label rows and intersect them through
+`repro_torch.kernels.label_query.query_table`: the hand-written kernel
+when the table is on the card, the plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import labels as lbl
+from repro_torch.core.labels import LabelTable
+from repro_torch.kernels.label_query import query_table
+
+
+def as_index(x, device) -> torch.Tensor:
+    """Vertex ids (array-like or tensor, any int dtype) as a 1-D int64
+    tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.atleast_1d(np.asarray(x)).astype(np.int64))
+    return x.reshape(-1).to(device=device, dtype=torch.int64)
+
+
+class DenseStore:
+    kind = "dense"
+
+    def __init__(self, table: LabelTable):
+        self._table = table
+
+    @property
+    def device(self) -> torch.device:
+        return self._table.hubs.device
+
+    @property
+    def n(self) -> int:
+        return self._table.n
+
+    @property
+    def num_shards(self) -> int:
+        return 1
+
+    @property
+    def total_labels(self) -> int:
+        return lbl.total_labels(self._table)
+
+    def query_device(self, u, v) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(dist, hub) as tensors on the store's device."""
+        return query_table(self._table, as_index(u, self.device),
+                           as_index(v, self.device))
+
+    def query(self, u, v) -> Tuple[np.ndarray, np.ndarray]:
+        d, h = self.query_device(u, v)
+        return d.cpu().numpy(), h.cpu().numpy()
+
+    def to_table(self) -> LabelTable:
+        return self._table
+
+    def shard_arrays(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        t = self._table
+        yield 0, {"hubs": t.hubs.cpu().numpy(),
+                  "dist": t.dist.cpu().numpy(),
+                  "count": t.count.cpu().numpy()}

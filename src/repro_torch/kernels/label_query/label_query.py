@@ -1,0 +1,56 @@
+"""Wrapper of the hand-written CUDA label-intersection kernel
+(``csrc/label_query.cu``).
+
+`label_query` takes CUDA tensors only; it checks device, dtype, shape
+and contiguity, allocates the outputs, launches on the current stream
+and raises if the launch was refused. ``KERNEL.launches`` counts
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.cuda import CudaKernel, ptr, stream_of
+
+KERNEL = CudaKernel(
+    "label_query",
+    Path(__file__).resolve().parent / "csrc" / "label_query.cu",
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+    + [ctypes.c_void_p])
+
+
+def label_query(hubs_u, dist_u, hubs_v, dist_v):
+    """(dist f32 [Q], hub i32 [Q]) for label rows hubs_* i32 /
+    dist_* f32 [Q, L] on the card; any Q and L."""
+    Q, L = hubs_u.shape
+    for name, t, dtype in (("hubs_u", hubs_u, torch.int32),
+                           ("dist_u", dist_u, torch.float32),
+                           ("hubs_v", hubs_v, torch.int32),
+                           ("dist_v", dist_v, torch.float32)):
+        if t.device != hubs_u.device or t.device.type != "cuda":
+            raise ValueError(f"label_query: {name} is on {t.device}; "
+                             f"every operand must be on {hubs_u.device} "
+                             "(CUDA)")
+        if t.dtype != dtype:
+            raise ValueError(f"label_query: {name} is {t.dtype}, "
+                             f"expected {dtype}")
+        if tuple(t.shape) != (Q, L):
+            raise ValueError(f"label_query: {name} has shape "
+                             f"{tuple(t.shape)}, expected {(Q, L)}")
+        if not t.is_contiguous():
+            raise ValueError(f"label_query: {name} is not contiguous")
+    out_d = torch.empty(Q, dtype=torch.float32, device=hubs_u.device)
+    out_h = torch.empty(Q, dtype=torch.int32, device=hubs_u.device)
+    if Q and L:
+        with torch.cuda.device(hubs_u.device):
+            KERNEL.launch(ptr(hubs_u), ptr(dist_u), ptr(hubs_v),
+                          ptr(dist_v), ptr(out_d), ptr(out_h), Q, L,
+                          stream_of(hubs_u))
+    elif Q:
+        out_d.fill_(torch.inf)
+        out_h.fill_(-1)
+    return out_d, out_h

@@ -1,0 +1,11 @@
+"""Shortest paths: the batched max-rank relaxation driver and the
+Dijkstra oracles."""
+
+from repro_torch.sssp.oracle import dijkstra, dijkstra_tree
+from repro_torch.sssp.relax import (DEFAULT_CHECK_EVERY, RelaxState,
+                                    batched_sssp, batched_sssp_maxrank,
+                                    combine_blocks, rank_block)
+
+__all__ = ["DEFAULT_CHECK_EVERY", "RelaxState", "batched_sssp",
+           "batched_sssp_maxrank", "combine_blocks", "dijkstra",
+           "dijkstra_tree", "rank_block"]
