@@ -9,21 +9,37 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    (one ``nvcc`` per source, all started together);
 2. kernel parity: each kernel against its plain PyTorch version with
    ``torch.equal`` at ragged shapes (ell_relax: deg 1..40, B in
-   {1, 4, 32}, retired trees, inf padding; label_query: L in
-   {8, 288, 700} with ties and disjoint rows);
+   {1, 4, 32}, retired trees, inf padding; ell_relax_windowed: the same
+   at 2, 3 and 7 forced source windows against the bucketed plain
+   sweep; label_query: L in {8, 288, 700} with ties and disjoint rows;
+   minplus: ragged (B, K, N), all-unreachable and tie cases);
 3. exactness: grid_road(64, 64) (n = 4096), a full PLaNT build on the
-   card, 4096 ``query_with_hub`` answers equal to scipy's Dijkstra, and
+   card, whose planes fit one source window (the dense ell_relax),
+   4096 ``query_with_hub`` answers equal to scipy's Dijkstra, and
    save -> load -> serve(qlsn) -> flush equal to ``query``;
-4. road scale (the main path at full width): the chl-road
-   configuration, grid_road(4096, 4096) (n = 16,777,216, ELL width 8),
-   one PLaNT superstep of one cluster node — 8 unpruned trees in
-   batches of 4, label cap 8 — then 65,536 qlsn queries through the
-   serving tier; every label of one root is checked against Dijkstra
-   and the served answers against the plain query. Launch counts are
-   reset just before this phase and read just after it;
-5. timing of each kernel at the main path's shapes (CUDA events)
-   beside its plain version and its memory/compute bound.
+4. road scale: the chl-road configuration, grid_road(4096, 4096)
+   (n = 16,777,216, ELL width 8), one PLaNT superstep of one cluster
+   node — 8 unpruned trees in batches of 4, label cap 8 — through the
+   source-windowed sweep, then 65,536 qlsn queries through the serving
+   tier; every label of one root is checked against Dijkstra and the
+   served answers against the plain query;
+5. random scale: random_connected(4,194,304, 4,194,304 extra edges),
+   sources spread over all n, at the chl-scalefree configuration's
+   batch 4, 8 trees and cap 32, through the source-windowed sweep,
+   checked and served as in phase 4;
+6. dense block: scale_free(32,768), the top 64 roots through
+   ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
+   minplus kernel), equal to the ELL engine on the card.
 
+Launch counts are set to 0 just before each of phases 3-6 and read
+just after it; a phase fails if a kernel of its path was not launched.
+Phases 3-6 end by timing their kernels at the path's shapes (CUDA
+events) beside the plain version and the memory/compute bound:
+ell_relax on a mid-build state of the exactness graph (B = 16), both
+relaxation kernels on the same mid-build states of the road and the
+random graph (the dense-vs-windowed comparison), label_query at the
+road serving shape, minplus at B = 64, K = N = 32,768. A relaxation
+bound counts the adjacency's finite in-edges, not its padded width.
 The last lines are the card (``nvidia-smi`` name and power limit), one
 JSON object with the per-kernel record, and the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest
@@ -52,6 +68,13 @@ PEAK_OPS_PER_S = 67e12
 
 ROAD_ROWS = ROAD_COLS = 4096      # repro/configs/chl_road.py: n = 16,777,216
 ROAD_TREES, ROAD_BATCH, ROAD_CAP = 8, 4, 8
+# repro/configs/chl_scalefree.py's n, batch, trees_per_node and cap on
+# the repo's random graph (its ELL width 64 needs hub splitting)
+RANDOM_N = RANDOM_EXTRA = 4_194_304
+RANDOM_TREES, RANDOM_BATCH, RANDOM_CAP = 8, 4, 32
+DENSE_N, DENSE_ROOTS = 32_768, 64
+EXACT_BATCH = 16
+SERVE_Q = 65_536
 
 
 def log(msg: str) -> None:
@@ -96,6 +119,20 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def reset(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def path_launches(kernels, path, what) -> dict:
+    """The launch counts of one phase; fails if a kernel of its path
+    was not launched."""
+    counts = {k.name: k.launches for k in kernels}
+    require(all(counts[name] > 0 for name in path),
+            f"{what}: a kernel of its path was not launched: {counts}")
+    return counts
+
+
 # ------------------------------------------------------------ operands
 
 def sweep_operands(rng, B, n, deg, device, dead_frac=0.25):
@@ -120,6 +157,13 @@ def sweep_operands(rng, B, n, deg, device, dead_frac=0.25):
             for x in (dist, mrank, prop, alive, ell_src, ell_w, rank)]
 
 
+def forced_cap(n: int, windows: int) -> int:
+    """A ``max_window`` that splits n vertices into ``windows``
+    source windows."""
+    n_bn = -(-n // 128) * 128
+    return -(-(-(-n_bn // windows)) // 128) * 128
+
+
 def label_operands(rng, Q, L, device):
     """Random label rows: few distinct hubs (many ties), -1 padding,
     and every 7th query disjoint."""
@@ -136,26 +180,58 @@ def label_operands(rng, Q, L, device):
             for x in (hubs_u, dist_u, hubs_v, dist_v)]
 
 
-def ell_relax_bound_ms(B, n, deg, live):
-    """(ms, "bytes" | "operations"): the least time for one sweep.
-    Each input is read once and each output written once; retired trees
-    read only dist/mrank. The fold's add/compare/max per live in-edge
-    runs at the f32 rate."""
-    ell = (8 * deg + 4) * n if live else 0      # ELL rows + rank row
-    bytes_ = ell + B + 8 * B * n + 4 * live * n + 8 * B * n
-    ops = 3 * live * n * deg
+def minplus_operands(rng, B, K, N, device):
+    """Random (min, +) operands: integral distances and weights (many
+    equal candidates), unreachable rows, +inf off-edge weights."""
+    import numpy as np
+    import torch
+    dist = np.where(rng.random((B, K)) < 0.6, rng.integers(0, 10, (B, K)),
+                    np.inf).astype(np.float32)
+    mrank = np.where(np.isfinite(dist), rng.integers(0, 100, (B, K)),
+                     -1).astype(np.int32)
+    w = np.where(rng.random((K, N)) < 0.3, rng.integers(1, 10, (K, N)),
+                 np.inf).astype(np.float32)
+    return [torch.as_tensor(x, device=device) for x in (dist, mrank, w)]
+
+
+def bound(bytes_: float, ops: float):
+    """(ms, "bytes" | "operations"): the larger of the two times at the
+    card's peak rates."""
     tb, to = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def relax_bound_ms(B, n, E, live):
+    """The least time for one sweep, of either relaxation kernel, over
+    an adjacency of ``E`` finite in-edges (the padding carries no
+    work). The edges (source and weight) and the rank row are read
+    once, dist/mrank of every tree and prop of each live one, and two
+    [B, n] planes written; the fold's add/compare/max per live in-edge
+    runs at the f32 rate."""
+    adj = (8 * E + 4 * n) if live else 0
+    return bound(adj + B + 8 * B * n + 4 * live * n + 8 * B * n,
+                 3 * live * E)
 
 
 def label_query_bound_ms(Q, L):
-    """(ms, "bytes" | "operations") for four [Q, L] operand reads and
-    two [Q] outputs, and Q * L * L hub compares (plus an add on a
-    match) at the f32 rate."""
-    bytes_ = 16 * Q * L + 8 * Q
-    ops = Q * L * L
-    tb, to = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
-    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    """Four [Q, L] operand reads and two [Q] outputs, and Q * L * L hub
+    compares (plus an add on a match) at the f32 rate."""
+    return bound(16 * Q * L + 8 * Q, Q * L * L)
+
+
+def minplus_bound_ms(B, K, N):
+    """W, dist and mrank read once, two [B, N] planes written, and an
+    add, a compare and a select per (b, u, v) at the f32 rate."""
+    return bound(4 * K * N + 8 * B * K + 8 * B * N, 3 * B * K * N)
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, bnd,
+           **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            **extra}
 
 
 # -------------------------------------------------------------- phases
@@ -163,8 +239,11 @@ def label_query_bound_ms(Q, L):
 def phase_parity(dev) -> None:
     import numpy as np
     import torch
-    from repro_torch.kernels.ell_relax import ell_relax, ell_sweep_plain
+    from repro_torch.kernels.ell_relax import (ell_relax, ell_relax_windowed,
+                                               ell_sweep_bucketed_plain,
+                                               ell_sweep_plain, sweep_layout)
     from repro_torch.kernels.label_query import label_query, label_query_ref
+    from repro_torch.kernels.minplus import minplus, minplus_plain
     rng = np.random.default_rng(11)
     for B in (1, 4, 32):
         for n, deg in ((1, 1), (333, 3), (1000, 8), (4097, 17), (777, 40)):
@@ -176,6 +255,24 @@ def phase_parity(dev) -> None:
                     f"ell_relax != plain at B={B} n={n} deg={deg}")
     log("parity ell_relax: torch.equal at B in {1,4,32} x (n, deg) in "
         "{(1,1),(333,3),(1000,8),(4097,17),(777,40)} — retired trees, "
+        "inf padding, ties")
+    cases = ((300, 1, 3), (4097, 17, 2), (1000, 8, 3), (777, 40, 7))
+    for B in (1, 4, 32):
+        for n, deg, windows in cases:
+            ops = sweep_operands(rng, B, n, deg, dev)
+            lay = sweep_layout(ops[4], ops[5], bb=B,
+                               max_window=forced_cap(n, windows))
+            require(lay.num_windows == windows,
+                    f"layout of n={n} has {lay.num_windows} windows")
+            kd, km = ell_relax_windowed(*ops[:4], lay, ops[6])
+            pd, pm = ell_sweep_bucketed_plain(*ops[:4], lay, ops[6])
+            torch.cuda.synchronize()
+            require(torch.equal(kd, pd) and torch.equal(km, pm),
+                    f"ell_relax_windowed != plain at B={B} n={n} "
+                    f"deg={deg} windows={windows}")
+    log("parity ell_relax_windowed: torch.equal to the bucketed plain "
+        "sweep at B in {1,4,32} x (n, deg, windows) in "
+        "{(300,1,3),(4097,17,2),(1000,8,3),(777,40,7)} — retired trees, "
         "inf padding, ties")
     for L in (8, 288, 700):
         for Q in (1, 45, 1000):
@@ -189,9 +286,31 @@ def phase_parity(dev) -> None:
                     "disjoint rows must answer +inf")
     log("parity label_query: torch.equal (dist, hub) at L in {8,288,700} "
         "x Q in {1,45,1000} — ties, disjoint rows")
+    for B, K, N in ((1, 1, 1), (3, 5, 7), (8, 128, 128), (64, 130, 250),
+                    (70, 333, 65)):
+        ops = minplus_operands(rng, B, K, N, dev)
+        kd, km = minplus(*ops)
+        pd, pm = minplus_plain(*ops)
+        torch.cuda.synchronize()
+        require(torch.equal(kd, pd) and torch.equal(km, pm),
+                f"minplus != plain at B={B} K={K} N={N}")
+    kd, km = minplus(torch.full((8, 130), torch.inf, device=dev),
+                     torch.full((8, 130), -1, dtype=torch.int32,
+                                device=dev),
+                     torch.full((130, 129), torch.inf, device=dev))
+    require(not bool(torch.isfinite(kd).any()) and bool((km == -1).all()),
+            "minplus: all-unreachable must give (+inf, -1)")
+    kd, km = minplus(torch.tensor([[1.0, 1.0]], device=dev),
+                     torch.tensor([[7, 9]], dtype=torch.int32, device=dev),
+                     torch.tensor([[2.0], [2.0]], device=dev))
+    require(float(kd[0, 0]) == 3.0 and int(km[0, 0]) == 9,
+            "minplus: a tie takes the max rank")
+    log("parity minplus: torch.equal at (B, K, N) in {(1,1,1),(3,5,7),"
+        "(8,128,128),(64,130,250),(70,333,65)}; all-unreachable -> "
+        "(+inf, -1); tie -> max rank")
 
 
-def phase_exactness(dev, kernels) -> None:
+def phase_exactness(dev, kernels) -> dict:
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -200,10 +319,10 @@ def phase_exactness(dev, kernels) -> None:
     from repro_torch.index import BuildPlan, CHLIndex, build
     g = grid_road(64, 64, seed=7)
     rank = betweenness_ranking(g, samples=12)
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
-    idx = build(g, rank, BuildPlan(algo="plant", batch=16), device=dev)
+    idx = build(g, rank, BuildPlan(algo="plant", batch=EXACT_BATCH),
+                device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rng = np.random.default_rng(3)
@@ -226,80 +345,77 @@ def phase_exactness(dev, kernels) -> None:
         srv.submit(u, v)
         out = srv.flush()
     require(np.array_equal(out, d), "exactness: served != query")
-    counts = {k.name: k.launches for k in kernels}
-    require(all(c > 0 for c in counts.values()),
-            f"exactness: a kernel was not launched: {counts}")
+    counts = path_launches(kernels, ("ell_relax", "label_query"),
+                           "exactness")
     sweeps = [r.sweeps for r in idx.report.supersteps]
     log(f"exactness n={g.n}: build {wall:.3f} s, "
         f"{len(sweeps)} supersteps, {sum(sweeps)} sweeps, "
         f"{idx.total_labels} labels (ALS {idx.als:.2f}, cap "
         f"{idx.report.cap}); 4096 query_with_hub == scipy Dijkstra; "
         f"save->load->serve(qlsn)->flush == query; launches {counts}")
+    return {"launches": counts, "graph": (g, rank)}
 
 
-def phase_road(dev, kernels) -> dict:
-    """The main path at full width; returns what the timing phase and
-    the record need."""
+def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
+    """One cluster node's PLaNT superstep(s) on the card through the
+    source-windowed sweep, then SERVE_Q qlsn queries; checks the top
+    root's labels against Dijkstra and the served answers against the
+    plain query. Returns what the timing and the record need."""
     import numpy as np
     import scipy.sparse as sp
     import torch
     from scipy.sparse.csgraph import dijkstra
     from repro_torch.core import labels as lbl
     from repro_torch.engine import rank_order, run_build
-    from repro_torch.graphs import degree_ranking, grid_road
     from repro_torch.index import BuildPlan, BuildReport, CHLIndex
     from repro_torch.index.store import DenseStore
+    from repro_torch.kernels.ell_relax import layout_plan
 
-    t0 = time.perf_counter()
-    g = grid_road(ROAD_ROWS, ROAD_COLS)
-    rank = degree_ranking(g)
-    roots = rank_order(rank)[:ROAD_TREES]
-    log(f"road graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
-        f"set-up {time.perf_counter() - t0:.1f} s")
-
-    for k in kernels:
-        k.launches = 0
+    roots = rank_order(rank)[:trees]
+    plan_w = layout_plan(g.n, dev, bb=batch)
+    require(plan_w.num_windows > 1, f"{what}: planes fit one window")
+    reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_build(g, rank, algo="plant", batch=ROAD_BATCH, cap=ROAD_CAP,
+    res = run_build(g, rank, algo="plant", batch=batch, cap=cap,
                     roots_order=roots, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     table = res.sink.table()
     total = lbl.total_labels(table)
-    plan = BuildPlan(algo="plant", batch=ROAD_BATCH, cap=ROAD_CAP)
+    plan = BuildPlan(algo="plant", batch=batch, cap=cap)
     report = BuildReport(algo="plant", wall_s=wall, total_labels=total,
-                         als=total / g.n, cap=ROAD_CAP,
+                         als=total / g.n, cap=cap,
                          supersteps=list(res.records))
     idx = CHLIndex(DenseStore(table), plan=plan, report=report, rank=rank)
     rng = np.random.default_rng(5)
-    u = rng.integers(0, g.n, 65536)
-    v = rng.integers(0, g.n, 65536)
-    srv = idx.serve(mode="qlsn", batch_size=65536)
+    u = rng.integers(0, g.n, SERVE_Q)
+    v = rng.integers(0, g.n, SERVE_Q)
+    srv = idx.serve(mode="qlsn", batch_size=SERVE_Q)
     t1 = time.perf_counter()
     srv.submit(u, v)
     served = srv.flush()
     serve_wall = time.perf_counter() - t1
-    launches = {k.name: k.launches for k in kernels}
-    require(all(c > 0 for c in launches.values()),
-            f"road: a kernel of the main path was not launched: {launches}")
+    launches = path_launches(kernels, ("ell_relax_windowed", "label_query"),
+                             what)
 
     sweeps = sum(r.sweeps for r in res.records)
-    bound, by = ell_relax_bound_ms(ROAD_BATCH, g.n, g.max_deg_in,
-                                   ROAD_BATCH)
-    log(f"road build: {len(res.records)} supersteps x {ROAD_BATCH} trees, "
-        f"{sweeps} sweeps, {total} labels, wall {wall:.2f} s, "
+    bnd, by = relax_bound_ms(batch, g.n, int(np.isfinite(g.ell_w).sum()),
+                             batch)
+    log(f"{what} build: {len(res.records)} supersteps x {batch} trees, "
+        f"{sweeps} sweeps over {plan_w.num_windows} source windows of "
+        f"{plan_w.window}, {total} labels, wall {wall:.2f} s, "
         f"{wall / max(1, sweeps) * 1e3:.3f} ms per sweep end to end "
-        f"(kernel bound {bound:.3f} ms per sweep, {by}), ell_relax "
-        f"launches {launches['ell_relax']}")
-    log(f"road serve: 65536 qlsn queries in one launch, host wall "
-        f"{serve_wall:.3f} s, label_query launches "
-        f"{launches['label_query']}")
+        f"(kernel bound {bnd:.3f} ms per sweep, {by}); launches "
+        f"{launches}")
+    log(f"{what} serve: {SERVE_Q} qlsn queries in one launch, host wall "
+        f"{serve_wall:.3f} s")
 
     # f32 path sums are exact only below 2^24
     finite = table.dist[torch.isfinite(table.dist)]
     dmax = float(finite.max())
-    require(dmax < 2 ** 24, f"road: largest label distance {dmax} >= 2^24")
+    require(dmax < 2 ** 24, f"{what}: largest label distance {dmax} "
+            ">= 2^24")
     # every label of the top root against Dijkstra
     r = int(roots[0])
     A = sp.csr_matrix((g.weights.astype(np.float64), g.indices, g.indptr),
@@ -309,87 +425,199 @@ def phase_road(dev, kernels) -> dict:
     hubs = table.hubs.cpu().numpy()
     dist = table.dist.cpu().numpy()
     vs, ks = np.nonzero(hubs == r)
-    require(len(vs) == g.n, f"road: top root labels {len(vs)} of {g.n}")
+    require(len(vs) == g.n, f"{what}: top root labels {len(vs)} of {g.n}")
     require(np.array_equal(dist[vs, ks], D[vs].astype(np.float32)),
-            "road: root labels != Dijkstra")
-    log(f"road check: largest label distance {dmax:.0f} < 2^24; all "
+            f"{what}: root labels != Dijkstra")
+    log(f"{what} check: largest label distance {dmax:.0f} < 2^24; all "
         f"{len(vs)} labels of root {r} == scipy Dijkstra "
         f"({time.perf_counter() - t1:.1f} s)")
     plain, _ = lbl.query_pairs(table, torch.as_tensor(u, device=dev),
                                torch.as_tensor(v, device=dev))
     require(np.array_equal(served, plain.cpu().numpy()),
-            "road: served != plain query")
-    require(bool(np.isfinite(served).all()), "road: every pair shares the "
-            "top root, so every answer is finite")
-    log("road serve: 65536 served answers == plain query_pairs")
-    return {"g": g, "rank": rank, "roots": roots, "table": table,
-            "launches": launches, "u": u, "v": v}
+            f"{what}: served != plain query")
+    require(bool(np.isfinite(served).all()), f"{what}: every pair shares "
+            "the top root, so every answer is finite")
+    log(f"{what} serve: {SERVE_Q} served answers == plain query_pairs")
+    return {"launches": launches, "roots": roots, "table": table,
+            "u": u, "v": v}
 
 
-def phase_timing(dev, road) -> list:
-    """Each kernel at the main path's shapes vs its plain version."""
+def time_relax(dev, what, g, rank, roots, batch, sweeps) -> dict:
+    """The relaxation kernels, and their plain versions, on one mid-build
+    state (``sweeps`` sweeps from the top roots, all trees live, dense
+    prop): the dense ``ell_relax`` always, ``ell_relax_windowed`` too
+    where the card's L2 calls for windows, on the same state."""
     import torch
-    from repro_torch.kernels.ell_relax import ell_relax, ell_sweep_plain
-    from repro_torch.kernels.label_query import label_query, label_query_ref
     from repro_torch.graphs import device_arrays
-    from repro_torch.sssp import batched_sssp_maxrank
-    g, rank, roots = road["g"], road["rank"], road["roots"]
+    from repro_torch.kernels.ell_relax import (ell_relax, ell_relax_windowed,
+                                               ell_sweep_bucketed_plain,
+                                               ell_sweep_plain)
+    from repro_torch.sssp import batched_sssp_maxrank, ell_layout
     a = device_arrays(g, rank, dev)
-    roots_d = torch.as_tensor(roots[:ROAD_BATCH], device=dev).long()
-    # a mid-build state of the first superstep's trees
+    lay = ell_layout(a.ell_src, a.ell_w, batch=batch)
+    roots_d = torch.as_tensor(roots[:batch], device=dev).long()
     st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
-                              max_sweeps=256)
+                              max_sweeps=sweeps, layout=lay)
     B, n = st.dist.shape
+    deg = a.ell_src.shape[1]
+    E = int(torch.isfinite(a.ell_w).sum())
     alive = torch.ones(B, dtype=torch.bool, device=dev)
-    ops = (st.dist, st.mrank, st.dist, alive, a.ell_src, a.ell_w, a.rank)
-    kd, km = ell_relax(*ops)
-    pd, pm = ell_sweep_plain(*ops)
-    torch.cuda.synchronize()
-    require(torch.equal(kd, pd) and torch.equal(km, pm),
-            "ell_relax != plain at the road shape")
-    err = max(max_abs_err(kd, pd), max_abs_err(km, pm))
-    del kd, km, pd, pm
-    ell_ms = time_ms(lambda: ell_relax(*ops), reps=20)
-    ell_plain_ms = time_ms(lambda: ell_sweep_plain(*ops), reps=3, warmup=1)
-    bound, by = ell_relax_bound_ms(B, n, a.ell_src.shape[1], B)
-    log(f"time ell_relax B={B} n={n} deg={a.ell_src.shape[1]}: kernel "
-        f"{ell_ms:.4f} ms, plain {ell_plain_ms:.4f} ms, bound {bound:.4f} "
-        f"ms ({by}); {bound / ell_ms * 100:.1f}% of the bound")
-    del ops, st
-    torch.cuda.empty_cache()
+    planes = (st.dist, st.mrank, st.dist, alive)
+    runs = {"ell_relax": (
+        lambda: ell_relax(*planes, a.ell_src, a.ell_w, a.rank),
+        lambda: ell_sweep_plain(*planes, a.ell_src, a.ell_w, a.rank))}
+    geometry = "one window"
+    if lay is not None:
+        runs["ell_relax_windowed"] = (
+            lambda: ell_relax_windowed(*planes, lay, a.rank),
+            lambda: ell_sweep_bucketed_plain(*planes, lay, a.rank))
+        segs = lay.segments
+        geometry = f"{lay.num_windows} windows of {lay.window}"
+        log(f"{what} layout: {geometry}, {segs.seg_row.numel()} segments "
+            f"({segs.seg_row.numel() / n:.3f} per vertex), "
+            f"{segs.bare_rows.numel()} vertices without a finite in-edge")
+    bnd = relax_bound_ms(B, n, E, B)
+    out, first = {}, None
+    for name, (kern, plain) in runs.items():
+        kd, km = kern()
+        pd, pm = plain()
+        torch.cuda.synchronize()
+        require(torch.equal(kd, pd) and torch.equal(km, pm),
+                f"{name} != plain at the {what} state")
+        if first is None:
+            first = (kd, km)
+        require(torch.equal(kd, first[0]) and torch.equal(km, first[1]),
+                f"{name} != ell_relax at the {what} state")
+        err = max(max_abs_err(kd, pd), max_abs_err(km, pm))
+        del pd, pm
+        ms = time_ms(kern, reps=20)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        log(f"time {name} at the {what} state B={B} n={n} ELL width {deg}"
+            f", {E} finite in-edges ({E / n:.3f} per vertex), {geometry}:"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); {bnd[0] / ms * 100:.1f}% of the "
+            "bound")
+    return out
 
-    table = road["table"]
-    u = torch.as_tensor(road["u"], device=dev)
-    v = torch.as_tensor(road["v"], device=dev)
+
+def time_label_query(dev, scale) -> dict:
+    import torch
+    from repro_torch.kernels.label_query import label_query, label_query_ref
+    table = scale["table"]
+    u = torch.as_tensor(scale["u"], device=dev)
+    v = torch.as_tensor(scale["v"], device=dev)
     lops = (table.hubs[u], table.dist[u], table.hubs[v], table.dist[v])
     kd, kh = label_query(*lops)
     pd, ph = label_query_ref(*lops)
     torch.cuda.synchronize()
     require(torch.equal(kd, pd) and torch.equal(kh, ph),
             "label_query != plain at the road serving shape")
-    lq_err = max_abs_err(kd, pd)
     Q, L = lops[0].shape
-    lq_ms = time_ms(lambda: label_query(*lops), reps=100)
-    lq_plain_ms = time_ms(lambda: label_query_ref(*lops), reps=20)
-    lq_bound, lq_by = label_query_bound_ms(Q, L)
-    log(f"time label_query Q={Q} L={L}: kernel {lq_ms:.4f} ms, plain "
-        f"{lq_plain_ms:.4f} ms, bound {lq_bound:.4f} ms ({lq_by}); "
-        f"{lq_bound / lq_ms * 100:.1f}% of the bound")
-    return [
-        {"name": "ell_relax", "route": "cuda",
-         "source": "src/repro_torch/kernels/ell_relax/csrc/ell_relax.cu",
-         "replaces": "src/repro/kernels/ell_relax/ell_relax.py:123",
-         "launches": road["launches"]["ell_relax"], "max_abs_err": err,
-         "ms": ell_ms, "plain_ms": ell_plain_ms, "bound_ms": bound,
-         "bound_by": by, "library_ms": None},
-        {"name": "label_query", "route": "cuda",
-         "source": "src/repro_torch/kernels/label_query/csrc/"
-                   "label_query.cu",
-         "replaces": "src/repro/kernels/label_query/label_query.py:32",
-         "launches": road["launches"]["label_query"],
-         "max_abs_err": lq_err, "ms": lq_ms, "plain_ms": lq_plain_ms,
-         "bound_ms": lq_bound, "bound_by": lq_by, "library_ms": None},
-    ]
+    ms = time_ms(lambda: label_query(*lops), reps=100)
+    plain_ms = time_ms(lambda: label_query_ref(*lops), reps=20)
+    bnd = label_query_bound_ms(Q, L)
+    log(f"time label_query Q={Q} L={L}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"{bnd[0] / ms * 100:.1f}% of the bound")
+    return {"max_abs_err": max_abs_err(kd, pd), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def phase_dense(dev, kernels) -> dict:
+    """Dense-block PLaNT over the minplus kernel, held against the ELL
+    engine on the card, then minplus timed at its shape."""
+    import torch
+    from repro_torch.engine import rank_order
+    from repro_torch.graphs import device_arrays, degree_ranking, scale_free
+    from repro_torch.kernels.minplus import (dense_weights, minplus,
+                                             minplus_plain,
+                                             plant_fixpoint_dense)
+    from repro_torch.sssp import batched_sssp_maxrank
+    t0 = time.perf_counter()
+    g = scale_free(DENSE_N, attach=2, seed=0)
+    rank = degree_ranking(g)
+    roots = torch.as_tensor(rank_order(rank)[:DENSE_ROOTS], device=dev)
+    a = device_arrays(g, rank, dev)
+    log(f"dense graph n={g.n} m={g.m}: host set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = dense_weights(g, dev)
+    dist, mrank, emit = plant_fixpoint_dense(w, a.rank, roots)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches(kernels, ("minplus",), "dense")
+    st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots)
+    require(torch.equal(dist, st.dist) and torch.equal(mrank, st.mrank),
+            "dense: (dist, mrank) != the ELL engine's")
+    want = (st.mrank == a.rank[roots][:, None]) & torch.isfinite(st.dist)
+    require(torch.equal(emit, want), "dense: emit != the ELL emit rule")
+    log(f"dense block: W [{g.n}, {g.n}] f32 ({w.numel() * 4 / 1e9:.2f} GB)"
+        f", {DENSE_ROOTS} roots to fixpoint in {launches['minplus']} "
+        f"sweeps, wall {wall:.3f} s (W built on the card included); "
+        f"(dist, mrank) == batched_sssp_maxrank over the ELL, emit == "
+        f"its rule ({int(emit.sum())} labels); launches {launches}")
+
+    ops = (dist, mrank, w)
+    kd, km = minplus(*ops)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pd, pm = minplus_plain(*ops)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    require(torch.equal(kd, pd) and torch.equal(km, pm),
+            "minplus != plain at the dense block's shape")
+    err = max(max_abs_err(kd, pd), max_abs_err(km, pm))
+    del pd, pm
+    ms = time_ms(lambda: minplus(*ops), reps=5, warmup=1)
+    B, K = dist.shape
+    N = w.shape[1]
+    bnd = minplus_bound_ms(B, K, N)
+    log(f"time minplus B={B} K={K} N={N}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (once), bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"{bnd[0] / ms * 100:.1f}% of the bound")
+    return {"launches": launches,
+            "minplus": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bnd[0], "bound_by": bnd[1]}}
+
+
+def road_graph():
+    from repro_torch.graphs import degree_ranking, grid_road
+    t0 = time.perf_counter()
+    g = grid_road(ROAD_ROWS, ROAD_COLS)
+    rank = degree_ranking(g)
+    log(f"road graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    return g, rank
+
+
+def random_graph():
+    from repro_torch.graphs import degree_ranking, random_connected
+    t0 = time.perf_counter()
+    g = random_connected(RANDOM_N, extra_edges=RANDOM_EXTRA, seed=0)
+    rank = degree_ranking(g)
+    log(f"random graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    return g, rank
+
+
+SOURCES = {
+    "ell_relax": ("src/repro_torch/kernels/ell_relax/csrc/ell_relax.cu",
+                  "src/repro/kernels/ell_relax/ell_relax.py:123"),
+    "ell_relax_windowed": (
+        "src/repro_torch/kernels/ell_relax/csrc/ell_relax_windowed.cu",
+        "src/repro/kernels/ell_relax/ell_relax.py:131"),
+    "label_query": (
+        "src/repro_torch/kernels/label_query/csrc/label_query.cu",
+        "src/repro/kernels/label_query/label_query.py:32"),
+    "minplus": ("src/repro_torch/kernels/minplus/csrc/minplus.cu",
+                "src/repro/kernels/minplus/minplus.py:36"),
+}
 
 
 def main() -> int:
@@ -397,12 +625,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    from repro_torch.engine import rank_order
     from repro_torch.kernels import all_kernels, build_all
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)} ({card})")
+        f"{torch.cuda.get_device_name(0)} ({card}), L2 "
+        f"{torch.cuda.get_device_properties(dev).L2_cache_size} B")
 
     t0 = time.perf_counter()
     kernels = build_all(all_kernels())
@@ -414,9 +644,53 @@ def main() -> int:
                 log(f"  {k.name}: {line.strip()}")
 
     phase_parity(dev)
-    phase_exactness(dev, kernels)
-    road = phase_road(dev, kernels)
-    records = phase_timing(dev, road)
+    launches = {k.name: 0 for k in kernels}
+
+    def add(counts):
+        for name, c in counts.items():
+            launches[name] += c
+
+    exact = phase_exactness(dev, kernels)
+    add(exact["launches"])
+    g, rank = exact["graph"]
+    times = {"ell_relax": time_relax(dev, "exactness", g, rank,
+                                     rank_order(rank), EXACT_BATCH,
+                                     sweeps=32)["ell_relax"]}
+
+    g, rank = road_graph()
+    road = phase_scale(dev, kernels, "road", g, rank, ROAD_BATCH,
+                       ROAD_TREES, ROAD_CAP)
+    add(road["launches"])
+    times["label_query"] = time_label_query(dev, road)
+    road_relax = time_relax(dev, "road", g, rank, road["roots"],
+                            ROAD_BATCH, sweeps=256)
+    del g, rank, road
+    torch.cuda.empty_cache()
+
+    g, rank = random_graph()
+    rnd = phase_scale(dev, kernels, "random", g, rank, RANDOM_BATCH,
+                      RANDOM_TREES, RANDOM_CAP)
+    add(rnd["launches"])
+    rnd_relax = time_relax(dev, "random", g, rank, rnd["roots"],
+                           RANDOM_BATCH, sweeps=8)
+    del g, rank, rnd
+    torch.cuda.empty_cache()
+
+    dense = phase_dense(dev, kernels)
+    add(dense["launches"])
+    times["minplus"] = dense["minplus"]
+    # the dense-vs-windowed comparison on the road and random states
+    # rides along as extra fields
+    times["ell_relax"].update(road=road_relax["ell_relax"],
+                              random=rnd_relax["ell_relax"])
+    times["ell_relax_windowed"] = dict(road_relax["ell_relax_windowed"],
+                                       random=rnd_relax["ell_relax_windowed"])
+    headline = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    records = [record(name, *SOURCES[name], launches[name],
+                      t["max_abs_err"], t["ms"], t["plain_ms"],
+                      (t["bound_ms"], t["bound_by"]),
+                      **{k: v for k, v in t.items() if k not in headline})
+               for name, t in ((k.name, times[k.name]) for k in kernels)]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

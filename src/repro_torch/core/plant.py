@@ -26,15 +26,18 @@ class TreeBatch(NamedTuple):
 def plant_batch(ell_src: torch.Tensor, ell_w: torch.Tensor,
                 rank: torch.Tensor, roots: torch.Tensor,
                 valid: torch.Tensor, hc: Optional[object] = None,
-                use_hc: bool = False) -> TreeBatch:
+                use_hc: bool = False, layout=None) -> TreeBatch:
     """PLaNT a batch of trees rooted at ``roots`` (padding masked by
-    ``valid``). The common-label-table pruning (``hc``/``use_hc``)
-    belongs to the hybrid algorithm and is not ported yet."""
+    ``valid``). ``layout``: optional source-bucketed layout
+    (`repro_torch.sssp.relax.ell_layout`), built once per graph by the
+    caller. The common-label-table pruning (``hc``/``use_hc``) belongs
+    to the hybrid algorithm and is not ported yet."""
     if use_hc or hc is not None:
         raise NotImplementedError(
             "common-label (hc) pruning belongs to the hybrid slice "
             "(ROADMAP Queue 1, item 11)")
-    st = relax.batched_sssp_maxrank(ell_src, ell_w, rank, roots)
+    st = relax.batched_sssp_maxrank(ell_src, ell_w, rank, roots,
+                                    layout=layout)
     root_rank = rank[roots.long()][:, None]
     emit = (st.mrank == root_rank) & torch.isfinite(st.dist)
     emit &= valid[:, None]

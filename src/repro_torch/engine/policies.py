@@ -16,6 +16,7 @@ from repro_torch.core.plant import plant_batch
 from repro_torch.engine.records import pack_stats
 from repro_torch.engine.scheduler import BatchSchedule, Step, rank_order
 from repro_torch.graphs.graph import device_arrays
+from repro_torch.sssp.relax import ell_layout
 
 
 class StepOutcome(NamedTuple):
@@ -67,6 +68,10 @@ class PlantPolicy(Policy):
                       else rank_order(rank))
         self.arrays = device_arrays(g, rank, device)
         self.device = self.arrays.ell_src.device
+        # the source-bucketed layout (None when one window covers the
+        # graph), built once per graph rather than per batch
+        self.layout = ell_layout(self.arrays.ell_src, self.arrays.ell_w,
+                                 batch=self.batch)
 
     def schedule(self) -> BatchSchedule:
         return BatchSchedule(self.order, self.batch)
@@ -75,7 +80,8 @@ class PlantPolicy(Policy):
         a = self.arrays
         roots_d = torch.as_tensor(st.roots, device=self.device)
         valid_d = torch.as_tensor(st.valid, device=self.device)
-        tb = plant_batch(a.ell_src, a.ell_w, a.rank, roots_d, valid_d)
+        tb = plant_batch(a.ell_src, a.ell_w, a.rank, roots_d, valid_d,
+                         layout=self.layout)
         sink.insert(roots_d, tb.emit, tb.dist)
         stats = pack_stats(tb.emit.sum(dtype=torch.int32),
                            (tb.explored * valid_d).sum(dtype=torch.int32),

@@ -27,6 +27,7 @@ from repro_torch.index.artifact import CHLIndex
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport, OverflowEvent
 from repro_torch.index.store import DenseStore
+from repro_torch.kernels.ell_relax import layout_plan, windowed_note
 
 
 def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
@@ -47,6 +48,11 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
         raise ValueError(f"algo={plan.algo!r} needs an undirected graph")
     n = g.n
     cap = min(plan.cap or lbl.default_cap(n), n)
+    notes = []
+    windows = layout_plan(n, dev, bb=plan.batch)
+    if windows is not None and windows.num_windows > 1:
+        # surface the windowing decision in the report
+        notes.append(windowed_note(n, plan.batch, windows))
     overflow_events = []
     t0 = time.perf_counter()
     attempt = 0
@@ -79,5 +85,5 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     report = BuildReport(
         algo=plan.algo, wall_s=wall, total_labels=total,
         als=total / max(1, n), cap=cap, supersteps=list(res.records),
-        overflow_events=overflow_events, notes=[])
+        overflow_events=overflow_events, notes=notes)
     return CHLIndex(store, plan=plan, report=report, rank=rank)

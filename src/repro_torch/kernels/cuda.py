@@ -115,6 +115,25 @@ def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:
     return kernels
 
 
+def check_tensors(kernel: str, device, want) -> None:
+    """Raise ValueError unless every ``(name, tensor, dtype, shape)`` of
+    ``want`` lies on CUDA ``device`` with that dtype and shape
+    (``None`` in a shape matches any size) and is contiguous."""
+    for name, t, dtype, shape in want:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {t.device}; every "
+                             f"operand must be on {device} (CUDA)")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} is {t.dtype}, "
+                             f"expected {dtype}")
+        if len(t.shape) != len(shape) or any(
+                s is not None and s != x for s, x in zip(shape, t.shape)):
+            raise ValueError(f"{kernel}: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

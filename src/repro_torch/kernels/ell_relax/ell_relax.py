@@ -13,7 +13,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.cuda import CudaKernel, ptr, stream_of
+from repro_torch.kernels.cuda import (CudaKernel, check_tensors, ptr,
+                                      stream_of)
 
 KERNEL = CudaKernel(
     "ell_relax", Path(__file__).resolve().parent / "csrc" / "ell_relax.cu",
@@ -21,29 +22,24 @@ KERNEL = CudaKernel(
     + [ctypes.c_void_p])
 
 
-def check_operands(dist, mrank, prop, alive, ell_src, ell_w, rank) -> None:
-    """Raise ValueError on anything the kernel does not take."""
+def plane_specs(dist, mrank, prop, alive, rank):
+    """The sweep's state operands: ``(name, tensor, dtype, shape)``."""
     B, n = dist.shape
-    deg = ell_src.shape[1] if ell_src.dim() == 2 else -1
-    want = (("dist", dist, torch.float32, (B, n)),
+    return [("dist", dist, torch.float32, (B, n)),
             ("mrank", mrank, torch.int32, (B, n)),
             ("prop", prop, torch.float32, (B, n)),
             ("alive", alive, torch.bool, (B,)),
-            ("ell_src", ell_src, torch.int32, (n, deg)),
-            ("ell_w", ell_w, torch.float32, (n, deg)),
-            ("rank", rank, torch.int32, (n,)))
-    for name, t, dtype, shape in want:
-        if t.device != dist.device or t.device.type != "cuda":
-            raise ValueError(f"ell_relax: {name} is on {t.device}; every "
-                             f"operand must be on {dist.device} (CUDA)")
-        if t.dtype != dtype:
-            raise ValueError(f"ell_relax: {name} is {t.dtype}, "
-                             f"expected {dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ell_relax: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"ell_relax: {name} is not contiguous")
+            ("rank", rank, torch.int32, (n,))]
+
+
+def check_operands(dist, mrank, prop, alive, ell_src, ell_w, rank) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    n = dist.shape[1]
+    deg = ell_src.shape[1] if ell_src.dim() == 2 else -1
+    check_tensors("ell_relax", dist.device,
+                  plane_specs(dist, mrank, prop, alive, rank)
+                  + [("ell_src", ell_src, torch.int32, (n, deg)),
+                     ("ell_w", ell_w, torch.float32, (n, deg))])
 
 
 def ell_relax(dist, mrank, prop, alive, ell_src, ell_w, rank):

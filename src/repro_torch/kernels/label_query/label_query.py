@@ -14,7 +14,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.cuda import CudaKernel, ptr, stream_of
+from repro_torch.kernels.cuda import (CudaKernel, check_tensors, ptr,
+                                      stream_of)
 
 KERNEL = CudaKernel(
     "label_query",
@@ -27,22 +28,12 @@ def label_query(hubs_u, dist_u, hubs_v, dist_v):
     """(dist f32 [Q], hub i32 [Q]) for label rows hubs_* i32 /
     dist_* f32 [Q, L] on the card; any Q and L."""
     Q, L = hubs_u.shape
-    for name, t, dtype in (("hubs_u", hubs_u, torch.int32),
-                           ("dist_u", dist_u, torch.float32),
-                           ("hubs_v", hubs_v, torch.int32),
-                           ("dist_v", dist_v, torch.float32)):
-        if t.device != hubs_u.device or t.device.type != "cuda":
-            raise ValueError(f"label_query: {name} is on {t.device}; "
-                             f"every operand must be on {hubs_u.device} "
-                             "(CUDA)")
-        if t.dtype != dtype:
-            raise ValueError(f"label_query: {name} is {t.dtype}, "
-                             f"expected {dtype}")
-        if tuple(t.shape) != (Q, L):
-            raise ValueError(f"label_query: {name} has shape "
-                             f"{tuple(t.shape)}, expected {(Q, L)}")
-        if not t.is_contiguous():
-            raise ValueError(f"label_query: {name} is not contiguous")
+    check_tensors("label_query", hubs_u.device,
+                  [(name, t, dtype, (Q, L)) for name, t, dtype in
+                   (("hubs_u", hubs_u, torch.int32),
+                    ("dist_u", dist_u, torch.float32),
+                    ("hubs_v", hubs_v, torch.int32),
+                    ("dist_v", dist_v, torch.float32))])
     out_d = torch.empty(Q, dtype=torch.float32, device=hubs_u.device)
     out_h = torch.empty(Q, dtype=torch.int32, device=hubs_u.device)
     if Q and L:

@@ -4,8 +4,8 @@ Dijkstra oracles."""
 from repro_torch.sssp.oracle import dijkstra, dijkstra_tree
 from repro_torch.sssp.relax import (DEFAULT_CHECK_EVERY, RelaxState,
                                     batched_sssp, batched_sssp_maxrank,
-                                    combine_blocks, rank_block)
+                                    combine_blocks, ell_layout, rank_block)
 
 __all__ = ["DEFAULT_CHECK_EVERY", "RelaxState", "batched_sssp",
            "batched_sssp_maxrank", "combine_blocks", "dijkstra",
-           "dijkstra_tree", "rank_block"]
+           "dijkstra_tree", "ell_layout", "rank_block"]

@@ -17,7 +17,11 @@ Execution follows the reference driver sweep for sweep, so ``dist``,
 ``mrank``, ``sweeps`` and ``explored`` are identical to it:
 
 - each sweep runs through `repro_torch.kernels.ell_relax.ell_sweep` —
-  the hand-written kernel on CUDA tensors, the plain version on CPU;
+  the hand-written kernel on CUDA tensors, the plain version on CPU —
+  on the route resolved once per call: the source-windowed layout
+  given as ``layout=``, or the one the card's L2 calls for (built and
+  cached when the source planes outgrow half of it), else the dense
+  sweep;
 - sweeps are frontier-gated on the kernel path: only vertices whose
   (dist, mrank) changed last sweep, plus vertices that just unblocked,
   propagate; trees whose frontier is empty are retired (``alive``);
@@ -35,11 +39,22 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.ell_relax import ell_sweep
+from repro_torch.kernels.ell_relax import (BucketedEll, ell_sweep,
+                                           resolve_sweep_backend,
+                                           sweep_layout)
 
 BlockFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 DEFAULT_CHECK_EVERY = 4
+
+
+def ell_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *,
+               batch: int) -> Optional[BucketedEll]:
+    """Build (and cache) the source-bucketed layout for sweeps of
+    ``batch`` trees over this adjacency, or None when one window of the
+    card's L2 covers it (and on the CPU) — the driver-facing alias of
+    `repro_torch.kernels.ell_relax.sweep_layout`."""
+    return sweep_layout(ell_src, ell_w, bb=batch)
 
 
 class RelaxState(NamedTuple):
@@ -65,7 +80,8 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
                          block_fn: Optional[BlockFn] = None,
                          max_sweeps: Optional[int] = None,
                          check_every: Optional[int] = None,
-                         frontier_gating: Optional[bool] = None
+                         frontier_gating: Optional[bool] = None,
+                         layout: Optional[BucketedEll] = None
                          ) -> RelaxState:
     """Relax a batch of trees to fixpoint.
 
@@ -81,6 +97,9 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
         kernel, 1 on the plain path).
       frontier_gating: mask propagation to the active frontier and
         retire converged trees (default: on with the kernel).
+      layout: optional `BucketedEll` (see `ell_layout`) selecting the
+        source-windowed sweep; on the card one is built and cached when
+        the source planes outgrow one window.
     All tensors lie on one device; CUDA means the kernel runs.
     """
     n = ell_src.shape[0]
@@ -93,6 +112,7 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
     stride = ((DEFAULT_CHECK_EVERY if kern else 1)
               if check_every is None else check_every)
     stride = max(1, min(stride, cap))
+    layout = resolve_sweep_backend(ell_src, ell_w, B, layout=layout)
     dist, mrank = _init(n, roots, rank)
     ar = torch.arange(B, device=roots.device)
 
@@ -126,7 +146,8 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
             prop = (torch.where(blocked_of(dist), torch.inf, dist)
                     if has_block else dist)
             alive = all_alive
-        nd, nm = ell_sweep(dist, mrank, prop, alive, ell_src, ell_w, rank)
+        nd, nm = ell_sweep(dist, mrank, prop, alive, ell_src, ell_w, rank,
+                           layout=layout)
         return nd, nm, (nd < dist) | (nm != mrank), blocked
 
     it = 0
@@ -142,7 +163,8 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
 def batched_sssp(ell_src: torch.Tensor, ell_w: torch.Tensor,
                  roots: torch.Tensor, *, max_sweeps: Optional[int] = None,
                  check_every: Optional[int] = None,
-                 frontier_gating: Optional[bool] = None) -> torch.Tensor:
+                 frontier_gating: Optional[bool] = None,
+                 layout: Optional[BucketedEll] = None) -> torch.Tensor:
     """Plain batched SSSP distances f32 [B, n], through the same engine
     with a constant-zero rank plane."""
     n = ell_src.shape[0]
@@ -150,7 +172,7 @@ def batched_sssp(ell_src: torch.Tensor, ell_w: torch.Tensor,
         ell_src, ell_w, torch.zeros(n, dtype=torch.int32,
                                     device=ell_src.device), roots,
         max_sweeps=max_sweeps, check_every=check_every,
-        frontier_gating=frontier_gating).dist
+        frontier_gating=frontier_gating, layout=layout).dist
 
 
 def rank_block(rank: torch.Tensor) -> BlockFn:

@@ -5,10 +5,14 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 - each kernel equals its plain PyTorch version bit for bit at ragged
-  shapes;
+  shapes (the windowed sweep at 2, 3 and 7 forced windows);
 - a PLaNT build on the card (kernel path: gated sweeps, stride 4)
   gives the same label table and answers as the CPU build (plain path:
-  ungated, stride 1), and its main path launches both kernels.
+  ungated, stride 1), and its main path launches the dense sweep and
+  the query kernel, not the windowed one; with an L2 that forces
+  windows it launches only the windowed sweep and still equals the CPU
+  build;
+- dense-block PLaNT on the card equals the ELL engine.
 """
 
 import numpy as np
@@ -20,9 +24,20 @@ from repro_torch.core import labels
 from repro_torch.graphs import grid_road, random_connected
 from repro_torch.graphs.ranking import degree_ranking
 from repro_torch.index import BuildPlan, build
-from repro_torch.kernels import all_kernels
-from repro_torch.kernels.ell_relax import ell_relax, ell_sweep_plain
+from repro_torch.graphs import scale_free
+from repro_torch.kernels.ell_relax import KERNEL as ELL_RELAX
+from repro_torch.kernels.ell_relax import (WINDOWED_KERNEL, ell_relax,
+                                           ell_relax_windowed,
+                                           ell_sweep_bucketed_plain,
+                                           ell_sweep_plain, sweep_layout)
+from repro_torch.kernels.ell_relax import layout as port_layout
+from repro_torch.kernels.label_query import KERNEL as LABEL_QUERY
 from repro_torch.kernels.label_query import query_table
+from repro_torch.kernels.minplus import KERNEL as MINPLUS
+from repro_torch.kernels.minplus import (dense_weights, minplus,
+                                         minplus_plain,
+                                         plant_fixpoint_dense)
+from repro_torch.sssp import batched_sssp_maxrank
 
 pytestmark = pytest.mark.cuda
 
@@ -84,8 +99,8 @@ def test_build_on_card_equals_cpu_build(cuda_device, kind):
     g = (grid_road(9, 9, seed=1) if kind == "grid"
          else random_connected(60, 50, seed=3, max_w=3))
     rank = degree_ranking(g)
-    kernels = all_kernels()
-    for k in kernels:
+    kernels = [ELL_RELAX, LABEL_QUERY]
+    for k in kernels + [WINDOWED_KERNEL]:
         k.launches = 0
     card = build(g, rank, BuildPlan(algo="plant", batch=8),
                  device=cuda_device)
@@ -101,3 +116,92 @@ def test_build_on_card_equals_cpu_build(cuda_device, kind):
     srv.submit(u, v)
     assert np.array_equal(srv.flush(), cd)
     assert all(k.launches > 0 for k in kernels)
+    # one window of the card's L2 covers these graphs: the dense route
+    assert WINDOWED_KERNEL.launches == 0
+    assert card.report.notes == []
+
+
+@pytest.mark.parametrize("B,n,deg,windows", [(1, 300, 1, 3), (4, 333, 17, 3),
+                                             (32, 777, 40, 7),
+                                             (4, 4097, 8, 2)])
+def test_ell_relax_windowed_equals_plain(cuda_device, B, n, deg, windows):
+    state = sweep_state(np.random.default_rng(B * n), B, n, deg,
+                        cuda_device)
+    n_bn = -(-n // 128) * 128
+    mw = -(-(-(-n_bn // windows)) // 128) * 128     # the cap for `windows`
+    lay = sweep_layout(state[4], state[5], bb=B, max_window=mw)
+    assert lay.num_windows == windows
+    kd, km = ell_relax_windowed(*state[:4], lay, state[6])
+    pd, pm = ell_sweep_bucketed_plain(*state[:4], lay, state[6])
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+    dd, dm = ell_relax(*state)
+    assert torch.equal(kd, dd) and torch.equal(km, dm)
+
+
+@pytest.mark.parametrize("B,K,N", [(1, 1, 1), (3, 5, 7), (64, 130, 250),
+                                   (70, 333, 65)])
+def test_minplus_equals_plain(cuda_device, B, K, N):
+    rng = np.random.default_rng(B + K + N)
+    dist = np.where(rng.random((B, K)) < 0.6, rng.integers(0, 10, (B, K)),
+                    np.inf).astype(np.float32)
+    mrank = np.where(np.isfinite(dist), rng.integers(0, 100, (B, K)),
+                     -1).astype(np.int32)
+    w = np.where(rng.random((K, N)) < 0.3, rng.integers(1, 10, (K, N)),
+                 np.inf).astype(np.float32)
+    ops = [torch.as_tensor(x, device=cuda_device) for x in (dist, mrank, w)]
+    kd, km = minplus(*ops)
+    pd, pm = minplus_plain(*ops)
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+
+
+def test_windowed_build_on_card_equals_cpu_build(cuda_device, monkeypatch):
+    g = random_connected(700, 600, seed=5, max_w=4)
+    rank = degree_ranking(g)
+    cpu = build(g, rank, BuildPlan(algo="plant", batch=8), device="cpu")
+    # an L2 whose half holds 256 vertices of 8 trees' planes: 3 windows
+    monkeypatch.setattr(port_layout, "l2_bytes",
+                        lambda device: 2 * 8 * 8 * 256)
+    ELL_RELAX.launches = WINDOWED_KERNEL.launches = 0
+    card = build(g, rank, BuildPlan(algo="plant", batch=8),
+                 device=cuda_device)
+    assert WINDOWED_KERNEL.launches > 0 and ELL_RELAX.launches == 0
+    assert any("source-windowed" in x and "num_windows=3" in x
+               for x in card.report.notes)
+    for a, b in zip(card.table, cpu.table):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dense_plant_on_card_equals_ell_engine(cuda_device):
+    g = scale_free(300, attach=2, seed=3)
+    rank = torch.as_tensor(degree_ranking(g), device=cuda_device)
+    roots = torch.arange(16, device=cuda_device)
+    MINPLUS.launches = 0
+    dist, mrank, emit = plant_fixpoint_dense(
+        dense_weights(g, cuda_device), rank, roots)
+    assert MINPLUS.launches > 0
+    ell_src = torch.as_tensor(g.ell_src, device=cuda_device)
+    ell_w = torch.as_tensor(g.ell_w, device=cuda_device)
+    st = batched_sssp_maxrank(ell_src, ell_w, rank, roots)
+    assert torch.equal(dist, st.dist) and torch.equal(mrank, st.mrank)
+    assert torch.equal(emit, (st.mrank == rank[roots][:, None])
+                       & torch.isfinite(st.dist))
+
+
+def test_new_wrappers_refuse_wrong_dtypes(cuda_device):
+    state = sweep_state(np.random.default_rng(1), 2, 300, 3, cuda_device)
+    lay = sweep_layout(state[4], state[5], bb=2, max_window=128)
+    with pytest.raises(ValueError, match="float32"):
+        ell_relax_windowed(state[0].double(), *state[1:4], lay, state[6])
+    with pytest.raises(ValueError, match="int32"):
+        ell_relax_windowed(*state[:4], lay, state[6].long())
+    d = torch.zeros(3, 4, device=cuda_device)
+    m = torch.zeros(3, 4, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros(4, 5, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        minplus(d.double(), m, w)
+    with pytest.raises(ValueError, match="int32"):
+        minplus(d, m.long(), w)
+    with pytest.raises(ValueError, match="shape"):
+        minplus(d, m, w[:3])
+    with pytest.raises(ValueError, match="CUDA"):
+        minplus(d, m, w.cpu())

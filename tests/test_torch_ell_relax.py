@@ -11,7 +11,11 @@ max) arithmetic is exact and every array must be bit-identical.
 2. driver — ``batched_sssp_maxrank`` against the reference driver's
    jnp path (the one its CPU dispatch picks): dist, mrank, sweeps and
    explored, with rank-block pruning, ``check_every`` in {1, 4} and
-   frontier gating on and off.
+   frontier gating on and off;
+3. source windows — the window plan, the bucketed layout's arrays, the
+   bucketed plain sweep, the windowed fixpoint and a whole PLaNT build
+   with forced windows, each against the reference (its windowed Pallas
+   kernel in interpret mode where it has one).
 """
 
 import numpy as np
@@ -21,12 +25,20 @@ import torch
 import jax.numpy as jnp
 
 import repro.graphs as rg
+import repro.kernels.ell_relax as ref_ell
 from repro.graphs.ranking import degree_ranking, random_ranking
 from repro.kernels.ell_relax import ell_sweep as ref_ell_sweep
 from repro.kernels.ell_relax import ell_sweep_ref as ref_sweep_ref
 from repro.sssp import relax as ref_relax
-from repro_torch.kernels.ell_relax import (KERNEL, ell_relax, ell_sweep,
-                                           ell_sweep_plain, ell_sweep_ref)
+from repro_torch import interop
+from repro_torch.kernels import all_kernels
+from repro_torch.kernels.ell_relax import (
+    KERNEL, WINDOWED_KERNEL, build_bucketed_ell, ell_relax,
+    ell_relax_windowed, ell_sweep, ell_sweep_bucketed_plain,
+    ell_sweep_plain, ell_sweep_ref, kernel_fits, layout_plan,
+    resolve_sweep_backend, sweep_layout, window_cap, window_plan)
+from repro_torch.kernels.ell_relax import layout as port_layout
+from repro_torch.kernels.ell_relax import ref as port_ref
 from repro_torch.sssp import relax
 
 torch.set_num_threads(1)
@@ -177,3 +189,296 @@ def test_batched_sssp_and_combined_blocks():
     assert np.array_equal(st.dist.numpy(), np.asarray(rst.dist))
     assert np.array_equal(st.mrank.numpy(), np.asarray(rst.mrank))
 
+
+
+# ------------------------------------------------------- source windows
+
+#: ``L2_cache_size`` that torch reports for an H100 (50 MiB)
+H100_L2 = 50 * 1024 * 1024
+
+
+def force_window(monkeypatch, window: int, batch: int) -> None:
+    """Stand in an L2 whose half holds ``window`` vertices of ``batch``
+    trees' source planes, on every device (the CPU included) — the
+    counterpart of the reference tests' ``REPRO_ELL_VMEM_BUDGET``."""
+    monkeypatch.setattr(port_layout, "l2_bytes",
+                        lambda device: 2 * 8 * batch * window)
+
+
+def test_window_cap_from_l2_and_plan_geometry(monkeypatch):
+    """Half the L2 over 8 B per vertex and tree sets the cap; past it
+    the plan balances windows exactly as the reference's does."""
+    assert window_cap(H100_L2, bb=4) == 819200
+    cap = window_cap(H100_L2, bb=4)
+    assert kernel_fits(819200, bb=4, max_window=cap)
+    assert not kernel_fits(819201, bb=4, max_window=cap)
+    # the two graphs of the card run: road and random
+    assert window_plan(16_777_216, bb=4, max_window=cap) == (
+        798976, 21, 16778496)
+    assert window_plan(4_194_304, bb=4, max_window=cap) == (
+        699136, 6, 4194816)
+    assert window_plan(1000, max_window=384) == (384, 3, 1152)
+    assert window_plan(1000, max_window=300).window <= 256
+    assert window_plan(100, max_window=cap) == (128, 1, 128)
+    for n, mw in ((131073, 131072), (1000, 384), (1000, 300), (255, 128),
+                  (257, 128), (513, 128), (100, 1 << 20), (1, 128)):
+        assert tuple(window_plan(n, max_window=mw)) == tuple(
+            ref_ell.window_plan(n, max_window=mw)), (n, mw)
+    # the CPU has no L2 to size against: no plan unless forced
+    assert layout_plan(300, "cpu", bb=8) is None
+    with pytest.raises(ValueError, match="L2"):
+        window_plan(300, bb=8, device="cpu")
+    force_window(monkeypatch, 128, 8)
+    assert layout_plan(300, "cpu", bb=8).num_windows == 3
+    assert layout_plan(300, "cpu", bb=2).num_windows == 1
+
+
+def _rand_ell(rng, n, deg, dens=0.6):
+    es = rng.integers(0, n, (n, deg)).astype(np.int32)
+    ew = np.where(rng.random((n, deg)) < dens, rng.integers(1, 9, (n, deg)),
+                  np.inf).astype(np.float32)
+    return es, ew
+
+
+@pytest.mark.parametrize("n,deg,mw", [(255, 7, 128), (257, 9, 128),
+                                      (300, 5, 100), (513, 40, 200)])
+def test_bucketed_arrays_equal_reference(n, deg, mw):
+    es, ew = _rand_ell(np.random.default_rng(n), n, deg)
+    plan = window_plan(n, max_window=mw)
+    assert plan.num_windows > 1
+    got = build_bucketed_ell(torch.as_tensor(es), torch.as_tensor(ew),
+                             plan)
+    want = ref_ell.build_bucketed_ell(es, ew, ref_ell.window_plan(
+        n, max_window=mw))
+    for name in ("src", "w", "chunk_win"):
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert (got.dk, got.num_chunks, got.plan()) == (
+        want.dk, want.num_chunks, want.plan())
+
+
+def test_bucketed_layout_conserves_edges():
+    """Both the reference-format buckets and the kernel's window-major
+    segments hold each row's finite in-edge multiset exactly."""
+    n = 700
+    es, ew = _rand_ell(np.random.default_rng(7), n, 9, dens=0.4)
+    ew[5] = np.inf                                  # a row with no edge
+    lay = sweep_layout(torch.as_tensor(es), torch.as_tensor(ew), bb=1,
+                       max_window=256)
+    assert lay is not None and lay.num_windows == 3
+    src_b, w_b = lay.src.numpy(), lay.w.numpy()
+    cw = lay.chunk_win.numpy()
+    assert cw.shape == (lay.n_pad // lay.bn, lay.num_chunks)
+    assert ((cw >= 0) & (cw < lay.num_windows)).all()
+    fin = np.isfinite(w_b)
+    assert ((src_b >= 0) & (src_b < lay.window))[fin].all()
+    gsrc = src_b + np.repeat(np.repeat(cw, lay.bn, 0), lay.dk, 1) \
+        * lay.window
+    s = lay.segments
+    row, ptr = s.seg_row.numpy(), s.seg_ptr.numpy()
+    flags = s.seg_flags.numpy()
+    esrc, ewt = s.edge_src.numpy(), s.edge_w.numpy()
+    by_row = {}
+    for i in range(len(row)):
+        by_row.setdefault(int(row[i]), []).append(i)
+    for wd in range(lay.num_windows):            # destinations ascend
+        seg = row[s.win_segs[wd]:s.win_segs[wd + 1]]
+        assert (np.diff(seg) > 0).all()
+        lo, hi = ptr[s.win_segs[wd]], ptr[s.win_segs[wd + 1]]
+        assert (esrc[lo:hi] // lay.window == wd).all()
+    for v in range(n):
+        orig = sorted((int(a), float(b)) for a, b in zip(es[v], ew[v])
+                      if np.isfinite(b))
+        got = sorted((int(a), float(b)) for a, b in
+                     zip(gsrc[v][fin[v]], w_b[v][fin[v]]))
+        segs = by_row.get(v, [])
+        kern = sorted((int(esrc[e]), float(ewt[e])) for i in segs
+                      for e in range(ptr[i], ptr[i + 1]))
+        assert got == orig == kern, v
+        if segs:
+            assert [flags[i] & 1 for i in segs] == [1] + [0] * (len(segs)
+                                                                - 1)
+            assert [flags[i] >> 1 for i in segs] == [0] * (len(segs) - 1) \
+                + [1]
+    bare = np.flatnonzero(~np.isfinite(ew).any(axis=1))
+    assert 5 in bare and s.bare_rows.tolist() == bare.tolist()
+    assert not fin[n:].any()
+
+
+@pytest.mark.parametrize("n", [255, 256, 257, 300, 513])
+def test_bucketed_plain_equals_reference(n):
+    """The bucketed plain sweep == the reference's bucketed oracle, its
+    dense oracle and its windowed Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(n)
+    B, deg = 8, 7
+    state = sweep_state(rng, B, n, deg)
+    dist, mrank, prop, alive, es, ew, rank = state
+    lay = sweep_layout(torch.as_tensor(es), torch.as_tensor(ew), bb=B,
+                       max_window=128)
+    ref_lay = ref_ell.sweep_layout(es, ew, max_window=128)
+    assert lay.num_windows == ref_lay.num_windows > 1
+    t = as_torch(state)
+    pd, pm = ell_sweep_bucketed_plain(t[0], t[1], t[2], t[3], lay, t[6])
+    j = [jnp.asarray(x) for x in state]
+    wants = [ref_ell.ell_sweep_bucketed_ref(j[0], j[1], j[2], j[1],
+                                            ref_lay, j[6]),
+             ref_sweep_ref(j[0], j[1], j[2], j[1], j[4], j[5], j[6]),
+             ref_ell_sweep(*j, use_kernel=True, interpret=True,
+                           layout=ref_lay)]
+    for rd, rm in wants:
+        assert np.array_equal(pd.numpy(), np.asarray(rd))
+        assert np.array_equal(pm.numpy(), np.asarray(rm))
+
+
+def test_bucketed_plain_row_blocks(monkeypatch):
+    """Row blocking of the plain version changes nothing."""
+    rng = np.random.default_rng(4)
+    state = as_torch(sweep_state(rng, 3, 900, 11))
+    lay = sweep_layout(state[4], state[5], bb=3, max_window=256)
+    whole = ell_sweep_bucketed_plain(*state[:4], lay, state[6])
+    monkeypatch.setattr(port_ref, "BLOCK_ELEMS", 1)  # one tile per block
+    blocked = ell_sweep_bucketed_plain(*state[:4], lay, state[6])
+    assert torch.equal(whole[0], blocked[0])
+    assert torch.equal(whole[1], blocked[1])
+
+
+def test_cpu_dispatch_never_launches():
+    """On CPU tensors `ell_sweep` runs the plain versions — bucketed
+    when given a multi-window layout — and launches nothing; without a
+    layout the CPU builds none."""
+    rng = np.random.default_rng(5)
+    t = as_torch(sweep_state(rng, 4, 300, 6))
+    assert resolve_sweep_backend(t[4], t[5], 4) is None
+    lay = sweep_layout(t[4], t[5], bb=4, max_window=128)
+    one = sweep_layout(t[4], t[5], bb=4, max_window=512)
+    assert one is None and resolve_sweep_backend(t[4], t[5], 4,
+                                                 layout=lay) is lay
+    before = [k.launches for k in all_kernels()]
+    got = ell_sweep(*t, layout=lay)
+    want = ell_sweep_bucketed_plain(*t[:4], lay, t[6])
+    dense = ell_sweep(*t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], dense[0]) and torch.equal(got[1], dense[1])
+    assert [k.launches for k in all_kernels()] == before
+
+
+def test_windowed_wrapper_refuses_what_it_cannot_take():
+    rng = np.random.default_rng(0)
+    t = as_torch(sweep_state(rng, 2, 300, 3))
+    lay = sweep_layout(t[4], t[5], bb=2, max_window=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_relax_windowed(*t[:4], lay, t[6])
+    with pytest.raises(ValueError, match="n=300"):
+        ell_relax_windowed(t[0][:, :10], t[1][:, :10], t[2][:, :10], t[3],
+                           lay, t[6][:10])
+    assert WINDOWED_KERNEL.launches == 0
+
+
+def test_layout_cache_keyed_by_tensor_identity():
+    rng = np.random.default_rng(1)
+    es, ew = (torch.as_tensor(x) for x in _rand_ell(rng, 300, 4))
+    a = sweep_layout(es, ew, bb=2, max_window=128)
+    assert sweep_layout(es, ew, bb=2, max_window=128) is a
+    assert sweep_layout(es.clone(), ew, bb=2, max_window=128) is not a
+
+
+@pytest.mark.parametrize("gated,blocked", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+def test_windowed_fixpoint_matches_reference(monkeypatch, gated, blocked):
+    """The driver over a forced multi-window layout == the reference
+    driver over its windowed Pallas kernel (interpret mode): dist,
+    mrank, sweeps and explored, gated and ungated, with rank-block
+    pruning."""
+    g = rg.scale_free(300, attach=2, seed=4)
+    rank = degree_ranking(g)
+    roots = np.arange(0, g.n, 23, dtype=np.int32)
+    es, ew = torch.as_tensor(g.ell_src), torch.as_tensor(g.ell_w)
+    pr = torch.as_tensor(rank)
+    force_window(monkeypatch, 128, len(roots))
+    lay = relax.ell_layout(es, ew, batch=len(roots))
+    assert lay is not None and lay.num_windows > 1
+    pst = relax.batched_sssp_maxrank(
+        es, ew, pr, torch.as_tensor(roots), check_every=4,
+        frontier_gating=gated, layout=lay,
+        block_fn=relax.rank_block(pr) if blocked else None)
+    j = jnp.asarray
+    jr = j(rank)
+    ref_lay = ref_relax.ell_layout(j(g.ell_src), j(g.ell_w), max_window=128)
+    rst = ref_relax.batched_sssp_maxrank(
+        j(g.ell_src), j(g.ell_w), jr, j(roots), check_every=4,
+        frontier_gating=gated, use_kernel=True, layout=ref_lay,
+        block_fn=ref_relax.rank_block(jr) if blocked else None)
+    assert np.array_equal(pst.dist.numpy(), np.asarray(rst.dist))
+    assert np.array_equal(pst.mrank.numpy(), np.asarray(rst.mrank))
+    assert pst.sweeps == int(rst.sweeps)
+    assert np.array_equal(pst.explored.numpy(), np.asarray(rst.explored))
+
+
+def test_windowed_build_equals_reference(monkeypatch):
+    """A CPU PLaNT build with forced windows gives the reference's label
+    tables (hubs, dist, count, slot order, padding) under its windowed
+    kernel, and its report records the windowing."""
+    import jax
+
+    from repro.index import BuildPlan as RefPlan
+    from repro.index import build as ref_build
+    from repro_torch.index import BuildPlan, BuildReport, build
+    g = rg.scale_free(300, attach=2, seed=0)
+    rank = degree_ranking(g)
+    unforced = build(interop.graph(g), rank,
+                     BuildPlan(algo="plant", batch=64), device="cpu")
+    assert unforced.report.notes == []
+    with monkeypatch.context() as m:
+        force_window(m, 256, 64)
+        port = build(interop.graph(g), rank,
+                     BuildPlan(algo="plant", batch=64), device="cpu")
+    monkeypatch.setenv(ref_ell.ELL_RELAX_ENV_VAR, "kernel")
+    monkeypatch.setenv(ref_ell.VMEM_BUDGET_ENV_VAR, "16k")  # window 256
+    ref_ell.clear_layout_cache()
+    jax.clear_caches()
+    ref = ref_build(g, rank, RefPlan(algo="plant", batch=64))
+    jax.clear_caches()
+    ref_ell.clear_layout_cache()
+    assert any("source-windowed" in x for x in ref.report.notes)
+    for a, b in zip(port.table, ref.table):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    plan = window_plan(g.n, max_window=256)
+    assert plan.num_windows == 2
+    notes = port.report.notes
+    assert any("source-windowed" in x and f"window={plan.window}" in x
+               for x in notes)
+    assert BuildReport.from_dict(port.report.to_dict()).notes == notes
+    for a, b in zip(port.table, unforced.table):
+        assert torch.equal(a, b)
+
+
+def test_reference_format_arrays_built_on_first_use():
+    """The kernel's segments are built with the layout; the padded
+    reference-format arrays only when something reads them."""
+    rng = np.random.default_rng(9)
+    es, ew = (torch.as_tensor(x) for x in _rand_ell(rng, 300, 5))
+    lay = build_bucketed_ell(es, ew, window_plan(300, max_window=128))
+    assert lay._padded is None
+    t = as_torch(sweep_state(rng, 2, 300, 5))
+    ell_sweep(*t[:4], es, ew, t[6], layout=lay)
+    assert lay._padded is not None and lay.src.shape[0] == lay.n_pad
+
+
+def test_route_resolved_once_per_fixpoint(monkeypatch):
+    """The driver reads the L2 once per call, not once per sweep, and
+    its sweeps run the route it resolved."""
+    g = rg.scale_free(300, attach=2, seed=4)
+    es, ew = torch.as_tensor(g.ell_src), torch.as_tensor(g.ell_w)
+    roots = torch.arange(0, 16, dtype=torch.int32)
+    reads = []
+
+    def l2(device):
+        reads.append(device)
+        return 2 * 8 * 16 * 128                 # windows of 128 at B = 16
+    monkeypatch.setattr(port_layout, "l2_bytes", l2)
+    port_layout.clear_layout_cache()
+    st = relax.batched_sssp_maxrank(es, ew, torch.as_tensor(
+        degree_ranking(g)), roots)
+    assert st.sweeps > 4 and 0 < len(reads) <= 2
+    assert port_layout._cache                   # it built the layout
+    port_layout.clear_layout_cache()
