@@ -10,9 +10,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 2. kernel parity: each kernel against its plain PyTorch version with
    ``torch.equal`` at ragged shapes (ell_relax: deg 1..40, B in
    {1, 4, 32}, retired trees, inf padding; ell_relax_windowed: the same
-   at 2, 3 and 7 forced source windows against the bucketed plain
+   at 2, 3, 4 and 7 forced source windows against the bucketed plain
    sweep; label_query: L in {8, 288, 700} with ties and disjoint rows;
-   minplus: ragged (B, K, N), all-unreachable and tie cases);
+   minplus: ragged (B, K, N), all-unreachable and tie cases); the
+   windowed sweep also at B in {3, 5, 33}, with a hub row longer than
+   a tile's edge buffer, an empty window, one tree alive and none;
 3. exactness: grid_road(64, 64) (n = 4096), a full PLaNT build on the
    card, whose planes fit one source window (the dense ell_relax),
    4096 ``query_with_hub`` answers equal to scipy's Dijkstra, and
@@ -27,6 +29,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
    checked and served as in phase 4;
+   phases 4 and 5 end with a profiler window (``torch.profiler``) over
+   16 sweeps of the sweep loop (``batched_sssp_maxrank``): the
+   device's busy share, each kernel's device time by name, and per
+   sweep the relaxation kernel, the loop's own tensor ops and the
+   idle time;
 6. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card.
@@ -164,6 +171,29 @@ def forced_cap(n: int, windows: int) -> int:
     return -(-(-(-n_bn // windows)) // 128) * 128
 
 
+def windowed_operands(rng, B, n, deg, windows, kind, device):
+    """`sweep_operands` and their layout at ``windows`` forced source
+    windows. ``kind``: "random"; "hub" (row 7 takes its whole ELL row
+    from the first window); "gap" (no source in window 1); "retired"
+    (only tree 1 alive); "dead" (no tree alive)."""
+    import torch
+    from repro_torch.kernels.ell_relax import sweep_layout
+    ops = sweep_operands(rng, B, n, deg, "cpu")
+    cap = forced_cap(n, windows)
+    if kind == "hub":
+        ops[4][7] = torch.arange(deg, dtype=torch.int32)
+        ops[5][7] = torch.as_tensor(rng.integers(1, 9, deg),
+                                    dtype=torch.float32)
+    elif kind == "gap":
+        es = ops[4]
+        ops[4] = torch.where((es >= cap) & (es < 2 * cap), es - cap, es)
+    elif kind in ("retired", "dead"):
+        ops[3][:] = False
+        ops[3][1] = kind == "retired"
+    ops = [x.to(device) for x in ops]
+    return ops, sweep_layout(ops[4], ops[5], bb=B, max_window=cap)
+
+
 def label_operands(rng, Q, L, device):
     """Random label rows: few distinct hubs (many ties), -1 padding,
     and every 7th query disjoint."""
@@ -241,7 +271,8 @@ def phase_parity(dev) -> None:
     import torch
     from repro_torch.kernels.ell_relax import (ell_relax, ell_relax_windowed,
                                                ell_sweep_bucketed_plain,
-                                               ell_sweep_plain, sweep_layout)
+                                               ell_sweep_plain)
+    from repro_torch.kernels.ell_relax.layout import TILE_EDGES
     from repro_torch.kernels.label_query import label_query, label_query_ref
     from repro_torch.kernels.minplus import minplus, minplus_plain
     rng = np.random.default_rng(11)
@@ -256,24 +287,30 @@ def phase_parity(dev) -> None:
     log("parity ell_relax: torch.equal at B in {1,4,32} x (n, deg) in "
         "{(1,1),(333,3),(1000,8),(4097,17),(777,40)} — retired trees, "
         "inf padding, ties")
-    cases = ((300, 1, 3), (4097, 17, 2), (1000, 8, 3), (777, 40, 7))
-    for B in (1, 4, 32):
-        for n, deg, windows in cases:
-            ops = sweep_operands(rng, B, n, deg, dev)
-            lay = sweep_layout(ops[4], ops[5], bb=B,
-                               max_window=forced_cap(n, windows))
-            require(lay.num_windows == windows,
-                    f"layout of n={n} has {lay.num_windows} windows")
-            kd, km = ell_relax_windowed(*ops[:4], lay, ops[6])
-            pd, pm = ell_sweep_bucketed_plain(*ops[:4], lay, ops[6])
-            torch.cuda.synchronize()
-            require(torch.equal(kd, pd) and torch.equal(km, pm),
-                    f"ell_relax_windowed != plain at B={B} n={n} "
-                    f"deg={deg} windows={windows}")
+    hub = 2 * TILE_EDGES + 512
+    cases = ((300, 1, 3, "random"), (4097, 17, 2, "random"),
+             (1000, 8, 3, "random"), (777, 40, 7, "random"),
+             (2000, 6, 4, "random"), (hub, hub // 2, 2, "hub"),
+             (1000, 8, 4, "gap"))
+    runs = [(B,) + c for B in (1, 3, 4, 5, 32, 33) for c in cases]
+    runs += [(B, 1000, 8, 3, kind) for B in (4, 5)
+             for kind in ("retired", "dead")]
+    for B, n, deg, windows, kind in runs:
+        ops, lay = windowed_operands(rng, B, n, deg, windows, kind, dev)
+        require(lay.num_windows == windows,
+                f"layout of n={n} has {lay.num_windows} windows")
+        kd, km = ell_relax_windowed(*ops[:4], lay, ops[6])
+        pd, pm = ell_sweep_bucketed_plain(*ops[:4], lay, ops[6])
+        torch.cuda.synchronize()
+        require(torch.equal(kd, pd) and torch.equal(km, pm),
+                f"ell_relax_windowed != plain at B={B} n={n} "
+                f"deg={deg} windows={windows} ({kind})")
     log("parity ell_relax_windowed: torch.equal to the bucketed plain "
-        "sweep at B in {1,4,32} x (n, deg, windows) in "
-        "{(300,1,3),(4097,17,2),(1000,8,3),(777,40,7)} — retired trees, "
-        "inf padding, ties")
+        "sweep at B in {1,3,4,5,32,33} x (n, deg, windows) in "
+        "{(300,1,3),(4097,17,2),(1000,8,3),(777,40,7),(2000,6,4)}, a hub "
+        f"row of {hub // 2} in-edges from one window (past a tile's "
+        f"{TILE_EDGES}-edge buffer), an empty window; only one tree "
+        "alive, none alive — inf padding, ties")
     for L in (8, 288, 700):
         for Q in (1, 45, 1000):
             ops = label_operands(rng, Q, L, dev)
@@ -502,6 +539,68 @@ def time_relax(dev, what, g, rank, roots, batch, sweeps) -> dict:
     return out
 
 
+def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16) -> None:
+    """A profiler window (``torch.profiler``, CPU and CUDA) over
+    ``sweeps`` steady sweeps of ``batched_sssp_maxrank`` from the top
+    roots, on the route the card's L2 picks: the device's busy share of
+    the window, each kernel's device time by name, and per sweep the
+    relaxation kernel's time, the sweep loop's own tensor ops' and the
+    idle time. All times are the trace's device timestamps; without
+    device events the lines say "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.graphs import device_arrays
+    from repro_torch.sssp import batched_sssp_maxrank, ell_layout
+    a = device_arrays(g, rank, dev)
+    lay = ell_layout(a.ell_src, a.ell_w, batch=batch)
+    roots_d = torch.as_tensor(roots[:batch], device=dev).long()
+    batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
+                         max_sweeps=4, layout=lay)          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
+                                  max_sweeps=sweeps, layout=lay)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        log(f"trace {what}: not measured (the profile holds no device "
+            "time)")
+        return
+
+    def covered(events):
+        """Microseconds covered by the union of the events' spans (the
+        windows of one sweep may overlap)."""
+        total, reach = 0.0, -float("inf")
+        for start, end in sorted((e.time_range.start, e.time_range.end)
+                                 for e in events):
+            total += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+        return total
+
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    busy = covered(kern)
+    relax = covered([e for e in kern if "relax" in e.name])
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    n = st.sweeps
+    log(f"trace {what}: {n} sweeps over {len(kern)} device kernels, "
+        f"device span {span / 1e3:.3f} ms, busy {busy / span * 100:.1f} % "
+        f"(idle {100 - busy / span * 100:.1f} %); per sweep "
+        f"{span / n / 1e3:.4f} ms: relaxation kernel "
+        f"{relax / n / 1e3:.4f} ms, the sweep loop's tensor ops "
+        f"{(busy - relax) / n / 1e3:.4f} ms, idle "
+        f"{(span - busy) / n / 1e3:.4f} ms")
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        short = name.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("(")[0][:90]
+        log(f"trace {what}:   {t / n / 1e3:.4f} ms per sweep  {short}")
+
+
 def time_label_query(dev, scale) -> dict:
     import torch
     from repro_torch.kernels.label_query import label_query, label_query_ref
@@ -664,6 +763,7 @@ def main() -> int:
     times["label_query"] = time_label_query(dev, road)
     road_relax = time_relax(dev, "road", g, rank, road["roots"],
                             ROAD_BATCH, sweeps=256)
+    trace_sweeps(dev, "road", g, rank, road["roots"], ROAD_BATCH)
     del g, rank, road
     torch.cuda.empty_cache()
 
@@ -673,6 +773,7 @@ def main() -> int:
     add(rnd["launches"])
     rnd_relax = time_relax(dev, "random", g, rank, rnd["roots"],
                            RANDOM_BATCH, sweeps=8)
+    trace_sweeps(dev, "random", g, rank, rnd["roots"], RANDOM_BATCH)
     del g, rank, rnd
     torch.cuda.empty_cache()
 

@@ -20,7 +20,10 @@ reference's tests set its VMEM budget.
 
 :func:`build_bucketed_ell` builds the CUDA kernel's window-major layout
 (:class:`WindowSegments`): the finite in-edges sorted by (source
-window, destination), with no padding. The reference package's
+window, destination), with no padding, cut into *tiles* of consecutive
+segments of one window that one block of the kernel stages in shared
+memory (at most `TILE_SEGS` segments and `TILE_EDGES` edges, or one
+longer segment alone). The reference package's
 bucketed arrays (``src``, ``w``, ``chunk_win``, ``dk``,
 ``num_chunks``), which pad every row to the densest (row, window)
 bucket (4x the adjacency bytes on a random graph), are derived from the
@@ -49,6 +52,14 @@ import torch
 #: bytes per vertex and tree of the two staged source planes
 #: (f32 prop + i32 mrank)
 PLANE_BYTES = 8
+
+#: segments and edges one block of the windowed kernel stages in
+#: shared memory; ``csrc/ell_relax_windowed.cu`` sizes its buffers by
+#: the same two constants
+TILE_SEGS = 256
+TILE_EDGES = 2048
+
+_I32_MAX = 2 ** 31 - 1
 
 
 def window_cap(l2_bytes: int, *, bb: int, bn: int = 128) -> int:
@@ -118,7 +129,13 @@ class WindowSegments(NamedTuple):
 
     A *segment* is the run of one destination's edges inside one
     window. Window ``wd`` owns segments ``win_segs[wd]`` to
-    ``win_segs[wd + 1]``; in each, destinations ascend.
+    ``win_segs[wd + 1]``; in each, destinations ascend. A *tile* is a
+    run of consecutive segments of one window, cut greedily: it takes
+    segments while it holds at most `TILE_SEGS` of them and
+    `TILE_EDGES` edges; a segment longer than that is a tile alone.
+    Tile ``t`` owns segments ``tile_segs[t]`` to ``tile_segs[t + 1]``
+    and edges ``tile_edges[t]`` to ``tile_edges[t + 1]``; window ``wd``
+    owns tiles ``win_tiles[wd]`` to ``win_tiles[wd + 1]``.
     """
     seg_row: torch.Tensor     # i32 [S] destination vertex
     seg_ptr: torch.Tensor     # i64 [S + 1] edge offsets
@@ -128,6 +145,11 @@ class WindowSegments(NamedTuple):
     edge_w: torch.Tensor      # f32 [E] finite weight
     bare_rows: torch.Tensor   # i32 [R] vertices with no finite in-edge
     win_segs: List[int]       # [num_windows + 1] segment offsets
+    seg_end: torch.Tensor     # i32 [S] end of the segment's edges,
+    #                           counted from its tile's first edge
+    tile_segs: torch.Tensor   # i64 [T + 1] segment offsets of the tiles
+    tile_edges: torch.Tensor  # i64 [T + 1] edge offsets of the tiles
+    win_tiles: List[int]      # [num_windows + 1] tile offsets
 
 
 class BucketedEll:
@@ -198,11 +220,48 @@ def _segments(rows, srcs, ws, wins, n: int, nw: int) -> WindowSegments:
     torch.cumsum(counts, 0, out=ptr[1:])
     win_segs = torch.searchsorted(
         seg_win, torch.arange(nw + 1, device=dev)).tolist()
+    seg_end, tile_segs, tile_edges, win_tiles = _tiles(ptr, seg_win,
+                                                       win_segs)
     return WindowSegments(
         seg_row=seg_row.to(torch.int32), seg_ptr=ptr, seg_flags=flags,
         edge_src=srcs[order].to(torch.int32), edge_w=ws[order],
         bare_rows=torch.nonzero(hi < 0).flatten().to(torch.int32),
-        win_segs=win_segs)
+        win_segs=win_segs, seg_end=seg_end, tile_segs=tile_segs,
+        tile_edges=tile_edges, win_tiles=win_tiles)
+
+
+def _tiles(ptr: torch.Tensor, seg_win: torch.Tensor, win_segs: List[int]):
+    """Cut the segments into tiles: (seg_end, tile_segs, tile_edges,
+    win_tiles).
+
+    From segment i a tile reaches ``nxt[i]``: as far as `TILE_SEGS`,
+    `TILE_EDGES` and the window's end allow, and at least one segment.
+    The greedy tiles are the chain 0, nxt[0], nxt[nxt[0]], ..., walked
+    on the host (one step per tile). Raises if a segment's end, counted
+    from its tile's first edge, would not fit the kernel's i32.
+    """
+    dev = ptr.device
+    S = ptr.numel() - 1
+    i = torch.arange(S, device=dev)
+    fit = torch.searchsorted(ptr, ptr[:-1] + TILE_EDGES, right=True) - 1
+    win_end = torch.tensor(win_segs, device=dev)[seg_win + 1]
+    nxt = torch.minimum(torch.minimum(i + TILE_SEGS, fit), win_end)
+    nxt = torch.maximum(nxt, i + 1).cpu().numpy()
+    starts, t = [], 0
+    while t < S:
+        starts.append(t)
+        t = int(nxt[t])
+    starts.append(S)
+    tile_segs = torch.tensor(starts, dtype=torch.int64, device=dev)
+    tile_edges = ptr[tile_segs]
+    tile_of = torch.searchsorted(tile_segs, i, right=True) - 1
+    seg_end = ptr[1:] - tile_edges[tile_of]
+    if S and int(seg_end.max()) > _I32_MAX:
+        raise ValueError(f"a tile of {int(seg_end.max())} edges does not "
+                         "fit the windowed kernel's i32 edge offsets")
+    win_tiles = torch.searchsorted(
+        tile_segs, torch.tensor(win_segs, device=dev)).tolist()
+    return seg_end.to(torch.int32), tile_segs, tile_edges, win_tiles
 
 
 def _pad_buckets(seg: WindowSegments, plan: WindowPlan, *, bn: int,

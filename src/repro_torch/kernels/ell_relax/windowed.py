@@ -3,9 +3,9 @@
 
 `ell_relax_windowed` takes CUDA tensors and a `layout.BucketedEll` built
 on the same card. It checks them, allocates the outputs, launches one
-pass per source window on the current stream (all from one C call) and
-raises if a launch was refused. ``KERNEL.launches`` counts calls: one
-per sweep.
+pass per source window on the current stream (all from one C call; one
+block per tile of the layout) and raises if a launch was refused.
+``KERNEL.launches`` counts calls: one per sweep.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from repro_torch.kernels.ell_relax.ell_relax import plane_specs
 KERNEL = CudaKernel(
     "ell_relax_windowed",
     Path(__file__).resolve().parent / "csrc" / "ell_relax_windowed.cu",
-    argtypes=[ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 4
+    argtypes=[ctypes.c_void_p] * 16 + [ctypes.c_longlong] * 5
     + [ctypes.c_void_p])
 
 
@@ -40,27 +40,35 @@ def ell_relax_windowed(dist, mrank, prop, alive, layout, rank):
                          f" planes have n={n}")
     s = layout.segments
     S, E = s.seg_row.shape[0], s.edge_src.shape[0]
+    T = s.tile_segs.shape[0] - 1
     check_tensors("ell_relax_windowed", dist.device,
                   plane_specs(dist, mrank, prop, alive, rank)
                   + [("seg_row", s.seg_row, torch.int32, (S,)),
-                     ("seg_ptr", s.seg_ptr, torch.int64, (S + 1,)),
                      ("seg_flags", s.seg_flags, torch.uint8, (S,)),
+                     ("seg_end", s.seg_end, torch.int32, (S,)),
+                     ("tile_segs", s.tile_segs, torch.int64, (T + 1,)),
+                     ("tile_edges", s.tile_edges, torch.int64, (T + 1,)),
                      ("edge_src", s.edge_src, torch.int32, (E,)),
                      ("edge_w", s.edge_w, torch.float32, (E,)),
                      ("bare_rows", s.bare_rows, torch.int32, (None,))])
-    if len(s.win_segs) != layout.num_windows + 1 or s.win_segs[-1] != S:
+    nw = layout.num_windows
+    if len(s.win_tiles) != nw + 1 or s.win_tiles[-1] != T:
         raise ValueError("ell_relax_windowed: window offsets do not cover "
-                         "the segments")
+                         "the tiles")
+    if s.edge_src.data_ptr() % 16 or s.edge_w.data_ptr() % 16:
+        raise ValueError("ell_relax_windowed: the edges must start on a "
+                         "16-byte boundary (the kernel loads them as "
+                         "16-byte vectors)")
     out_d = torch.empty_like(dist)
     out_m = torch.empty_like(mrank)
     if B and n:
-        win_segs = (ctypes.c_longlong * len(s.win_segs))(*s.win_segs)
+        win_tiles = (ctypes.c_longlong * (nw + 1))(*s.win_tiles)
         with torch.cuda.device(dist.device):
             KERNEL.launch(ptr(dist), ptr(mrank), ptr(prop), ptr(alive),
-                          ptr(s.seg_row), ptr(s.seg_ptr), ptr(s.seg_flags),
+                          ptr(s.seg_row), ptr(s.seg_flags), ptr(s.seg_end),
+                          ptr(s.tile_segs), ptr(s.tile_edges),
                           ptr(s.edge_src), ptr(s.edge_w), ptr(rank),
                           ptr(s.bare_rows), ptr(out_d), ptr(out_m),
-                          ctypes.cast(win_segs, ctypes.c_void_p),
-                          layout.num_windows, s.bare_rows.shape[0], B, n,
-                          stream_of(dist))
+                          ctypes.cast(win_tiles, ctypes.c_void_p), nw,
+                          s.bare_rows.shape[0], E, B, n, stream_of(dist))
     return out_d, out_m

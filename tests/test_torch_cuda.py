@@ -5,7 +5,9 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 - each kernel equals its plain PyTorch version bit for bit at ragged
-  shapes (the windowed sweep at 2, 3 and 7 forced windows);
+  shapes (the windowed sweep at 2 to 7 forced windows, B not a
+  multiple of a block's trees, a hub row longer than a tile's edge
+  buffer, an empty window, retired trees);
 - a PLaNT build on the card (kernel path: gated sweeps, stride 4)
   gives the same label table and answers as the CPU build (plain path:
   ungated, stride 1), and its main path launches the dense sweep and
@@ -14,6 +16,8 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   build;
 - dense-block PLaNT on the card equals the ELL engine.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -121,16 +125,50 @@ def test_build_on_card_equals_cpu_build(cuda_device, kind):
     assert card.report.notes == []
 
 
-@pytest.mark.parametrize("B,n,deg,windows", [(1, 300, 1, 3), (4, 333, 17, 3),
-                                             (32, 777, 40, 7),
-                                             (4, 4097, 8, 2)])
-def test_ell_relax_windowed_equals_plain(cuda_device, B, n, deg, windows):
-    state = sweep_state(np.random.default_rng(B * n), B, n, deg,
-                        cuda_device)
+#: a hub row whose in-edges in one window pass a tile's edge buffer
+HUB_N = 2 * port_layout.TILE_EDGES + 512
+
+
+def windowed_state(rng, B, n, deg, windows, kind, device):
+    """`sweep_state` and a layout of ``windows`` forced source windows.
+    ``kind``: "random"; "hub" (row 7 takes its whole ELL row from the
+    first window, past the tile's edge buffer); "gap" (no source in
+    window 1); "retired" (only tree 1 alive); "dead" (no tree alive)."""
+    state = sweep_state(rng, B, n, deg, "cpu")
     n_bn = -(-n // 128) * 128
     mw = -(-(-(-n_bn // windows)) // 128) * 128     # the cap for `windows`
-    lay = sweep_layout(state[4], state[5], bb=B, max_window=mw)
+    if kind == "hub":
+        state[4][7] = torch.arange(deg, dtype=torch.int32)
+        state[5][7] = torch.as_tensor(rng.integers(1, 9, deg),
+                                      dtype=torch.float32)
+    elif kind == "gap":
+        es = state[4]
+        state[4] = torch.where((es >= mw) & (es < 2 * mw), es - mw, es)
+    elif kind in ("retired", "dead"):
+        state[3][:] = False
+        state[3][1] = kind == "retired"
+    state = [x.to(device) for x in state]
+    return state, sweep_layout(state[4], state[5], bb=B, max_window=mw)
+
+
+@pytest.mark.parametrize("B,n,deg,windows,kind", [
+    (1, 300, 1, 3, "random"), (4, 333, 17, 3, "random"),
+    (32, 777, 40, 7, "random"), (4, 4097, 8, 2, "random"),
+    (3, 1000, 8, 3, "random"), (5, 2000, 6, 4, "random"),
+    (33, 700, 12, 3, "random"), (4, HUB_N, HUB_N // 2, 2, "hub"),
+    (5, 1000, 8, 4, "gap"), (5, 1000, 8, 3, "retired"),
+    (4, 500, 8, 2, "dead")])
+def test_ell_relax_windowed_equals_plain(cuda_device, B, n, deg, windows,
+                                         kind):
+    state, lay = windowed_state(np.random.default_rng(B * n), B, n, deg,
+                                windows, kind, cuda_device)
     assert lay.num_windows == windows
+    s = lay.segments
+    tile_edges = s.seg_ptr[s.tile_segs].diff()
+    assert bool((tile_edges > port_layout.TILE_EDGES).any()) == (
+        kind == "hub")
+    if kind == "gap":
+        assert s.win_tiles[1] == s.win_tiles[2]
     kd, km = ell_relax_windowed(*state[:4], lay, state[6])
     pd, pm = ell_sweep_bucketed_plain(*state[:4], lay, state[6])
     assert torch.equal(kd, pd) and torch.equal(km, pm)
@@ -194,6 +232,15 @@ def test_new_wrappers_refuse_wrong_dtypes(cuda_device):
         ell_relax_windowed(state[0].double(), *state[1:4], lay, state[6])
     with pytest.raises(ValueError, match="int32"):
         ell_relax_windowed(*state[:4], lay, state[6].long())
+    # edges that do not start on a 16-byte boundary
+    s = lay.segments
+    shifted = torch.empty(s.edge_src.numel() + 1, dtype=torch.int32,
+                          device=cuda_device)[1:]
+    shifted.copy_(s.edge_src)
+    odd = copy.copy(lay)
+    odd.segments = s._replace(edge_src=shifted)
+    with pytest.raises(ValueError, match="16-byte"):
+        ell_relax_windowed(*state[:4], odd, state[6])
     d = torch.zeros(3, 4, device=cuda_device)
     m = torch.zeros(3, 4, dtype=torch.int32, device=cuda_device)
     w = torch.zeros(4, 5, device=cuda_device)

@@ -305,6 +305,93 @@ def test_bucketed_layout_conserves_edges():
     assert not fin[n:].any()
 
 
+def _tiled_ell(kind):
+    """(ell_src, ell_w, max_window) for the tile tests: a random graph,
+    one with a hub row whose in-edges in one window pass the edge
+    limit, one whose middle window holds no source, one with no finite
+    edge at all."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "random":
+        es, ew = _rand_ell(rng, 1500, 9)
+        return es, ew, 256
+    if kind == "dense":                  # many edges per segment
+        es, ew = _rand_ell(rng, 600, 200, dens=0.9)
+        return es, ew, 256
+    if kind == "hub":
+        n = 2 * port_layout.TILE_EDGES + 512
+        es, ew = _rand_ell(rng, n, n // 2, dens=0.01)
+        es[7] = np.arange(n // 2)               # all in the first window
+        ew[7] = rng.integers(1, 9, n // 2)
+        return es, ew, n // 2
+    if kind == "gap":
+        es, ew = _rand_ell(rng, 1000, 5)
+        es = np.where((es >= 256) & (es < 512), es - 256, es)
+        return es.astype(np.int32), ew, 256
+    es, ew = _rand_ell(rng, 300, 4)
+    return es, np.full_like(ew, np.inf), 128
+
+
+@pytest.mark.parametrize("kind", ["random", "dense", "hub", "gap",
+                                  "edgeless"])
+def test_tiles_cover_segments_within_limits(kind):
+    """The kernel's tiles, recomputed from ``seg_ptr`` with numpy: every
+    segment lies in exactly one tile, a tile lies in one window, no
+    tile passes `TILE_SEGS` or `TILE_EDGES` but a lone longer segment,
+    each tile is as long as the limits allow (the greedy cut), and the
+    tile-relative ends rebuild ``seg_ptr``."""
+    es, ew, mw = _tiled_ell(kind)
+    lay = sweep_layout(torch.as_tensor(es), torch.as_tensor(ew), bb=4,
+                       max_window=mw)
+    s = lay.segments
+    ptr = s.seg_ptr.numpy()
+    S = len(ptr) - 1
+    ts = s.tile_segs.numpy()
+    ends = s.seg_end.numpy()
+    assert np.array_equal(s.tile_edges.numpy(), ptr[ts])
+    TS, TE = port_layout.TILE_SEGS, port_layout.TILE_EDGES
+    assert s.seg_end.dtype == torch.int32 and ends.shape == (S,)
+    assert ts[0] == 0 and ts[-1] == S and (np.diff(ts) > 0).all()
+    assert len(s.win_tiles) == lay.num_windows + 1
+    assert [ts[t] for t in s.win_tiles] == list(s.win_segs)
+    win_end = {int(ts[t]) for t in s.win_tiles}
+    for a, b in zip(ts[:-1], ts[1:]):
+        ns, ne = b - a, ptr[b] - ptr[a]
+        assert (ns <= TS and ne <= TE) or ns == 1
+        if b not in win_end:            # the next segment did not fit
+            assert ns == TS or ptr[b + 1] - ptr[a] > TE
+        assert np.array_equal(ptr[a] + ends[a:b], ptr[a + 1:b + 1])
+    lone = [(a, b) for a, b in zip(ts[:-1], ts[1:]) if ptr[b] - ptr[a] > TE]
+    assert bool(lone) == (kind == "hub")
+    if kind == "gap":
+        assert s.win_tiles[1] == s.win_tiles[2]     # window 1 is empty
+    if kind == "edgeless":
+        assert S == 0 and s.win_tiles == [0] * (lay.num_windows + 1)
+
+
+def test_tiles_refuse_offsets_past_i32():
+    """A tile whose edges pass the i32 range raises, so no offset
+    wraps in the kernel."""
+    ptr = torch.tensor([0, 2 ** 31 + 5], dtype=torch.int64)
+    with pytest.raises(ValueError, match="i32"):
+        port_layout._tiles(ptr, torch.zeros(1, dtype=torch.int64), [0, 1])
+    end, tiles, edges, win = port_layout._tiles(
+        torch.tensor([0, 2 ** 31 - 1], dtype=torch.int64),
+        torch.zeros(1, dtype=torch.int64), [0, 1])
+    assert end.tolist() == [2 ** 31 - 1] and tiles.tolist() == [0, 1]
+    assert edges.tolist() == [0, 2 ** 31 - 1] and win == [0, 1]
+
+
+def test_tile_limits_match_kernel_source():
+    """The layout cuts tiles to the buffers the kernel declares."""
+    import re
+    from pathlib import Path
+    src = (Path(port_layout.__file__).parent / "csrc"
+           / "ell_relax_windowed.cu").read_text()
+    for name in ("TILE_SEGS", "TILE_EDGES"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(port_layout, name), name
+
+
 @pytest.mark.parametrize("n", [255, 256, 257, 300, 513])
 def test_bucketed_plain_equals_reference(n):
     """The bucketed plain sweep == the reference's bucketed oracle, its
