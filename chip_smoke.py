@@ -18,35 +18,46 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 3. exactness: grid_road(64, 64) (n = 4096), a full PLaNT build on the
    card, whose planes fit one source window (the dense ell_relax),
    4096 ``query_with_hub`` answers equal to scipy's Dijkstra, and
-   save -> load -> serve(qlsn) -> flush equal to ``query``;
-4. road scale: the chl-road configuration, grid_road(4096, 4096)
+   save -> load -> serve(qlsn) -> flush equal to ``query``; then a
+   profiler window over 64 of its sweeps (as in phases 5 and 6) and
+   the dense ell_relax timed on two mid-build states that are its
+   largest: grid_road(896, 896) (n = 802,816) and
+   random_connected(786,432, 786,432 extra edges) at the road batch of
+   4, whose two source planes just fit half the L2, each equal to the
+   plain sweep;
+4. dense block: scale_free(32,768), the top 64 roots through
+   ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
+   minplus kernel), equal to the ELL engine on the card;
+5. road scale: the chl-road configuration, grid_road(4096, 4096)
    (n = 16,777,216, ELL width 8), one PLaNT superstep of one cluster
    node — 8 unpruned trees in batches of 4, label cap 8 — through the
    source-windowed sweep, then 65,536 qlsn queries through the serving
    tier; every label of one root is checked against Dijkstra and the
    served answers against the plain query;
-5. random scale: random_connected(4,194,304, 4,194,304 extra edges),
+6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
-   checked and served as in phase 4;
-   phases 4 and 5 end with a profiler window (``torch.profiler``) over
+   checked and served as in phase 5;
+   phases 5 and 6 end with a profiler window (``torch.profiler``) over
    16 sweeps of the sweep loop (``batched_sssp_maxrank``): the
    device's busy share, each kernel's device time by name, and per
    sweep the relaxation kernel, the loop's own tensor ops and the
-   idle time;
-6. dense block: scale_free(32,768), the top 64 roots through
-   ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
-   minplus kernel), equal to the ELL engine on the card.
+   idle time.
 
 Launch counts are set to 0 just before each of phases 3-6 and read
 just after it; a phase fails if a kernel of its path was not launched.
-Phases 3-6 end by timing their kernels at the path's shapes (CUDA
-events) beside the plain version and the memory/compute bound:
-ell_relax on a mid-build state of the exactness graph (B = 16), both
-relaxation kernels on the same mid-build states of the road and the
-random graph (the dense-vs-windowed comparison), label_query at the
-road serving shape, minplus at B = 64, K = N = 32,768. A relaxation
-bound counts the adjacency's finite in-edges, not its padded width.
+Phases 3-6 end by timing their kernels at the path's shapes beside the
+plain version and the memory/compute bound: ell_relax on a mid-build
+state of the exactness graph (B = 16) and on the two mid-size states,
+both relaxation kernels on the same mid-build states of the road and
+the random graph (the dense-vs-windowed comparison), label_query at
+the road serving shape, minplus at B = 64, K = N = 32,768. Each kernel
+gets three times: ``ms``, CUDA events around a loop of wrapper calls
+(the host may pace it); ``device_ms``, the kernel's own device time per
+call from a ``torch.profiler`` window over the same calls; and
+``host_us``, the wrapper's host cost per call (``time.perf_counter``,
+no synchronisation inside the loop). A relaxation bound counts the
+adjacency's finite in-edges, not its padded width.
 The last lines are the card (``nvidia-smi`` name and power limit), one
 JSON object with the per-kernel record, and the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest
@@ -56,6 +67,7 @@ result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -81,6 +93,11 @@ RANDOM_N = RANDOM_EXTRA = 4_194_304
 RANDOM_TREES, RANDOM_BATCH, RANDOM_CAP = 8, 4, 32
 DENSE_N, DENSE_ROOTS = 32_768, 64
 EXACT_BATCH = 16
+# the dense route's largest states at the road batch of 4: two source
+# planes of 8 * 4 * n bytes just under half the H100's 50 MB L2
+MID_ROAD_SIDE = 896               # n = 802,816: 25.7 MB of planes
+MID_RANDOM_N = 786_432            # 25.2 MB of planes
+MID_SWEEPS = {"road-mid": 128, "random-mid": 8}
 SERVE_Q = 65_536
 
 
@@ -111,6 +128,78 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: the device-side name of each wrapper's kernel, as the profiler shows it
+DEVICE_NAMES = {"ell_relax": "ell_relax_kernel",
+                "ell_relax_windowed": "relax_tiles_kernel",
+                "label_query": "label_query_kernel",
+                "minplus": "minplus_kernel"}
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """The kernel's own device time per call of ``fn``: the device time
+    its events cover in a ``torch.profiler`` window over ``reps`` calls
+    (the union of their spans), divided by ``reps``; None when the
+    profile holds no device event of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    name = DEVICE_NAMES[kernel]
+    evs = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and name in e.name]
+    if not evs:
+        return None
+    return covered(evs) / 1e3 / reps
+
+
+def covered(events) -> float:
+    """Microseconds covered by the union of the events' device spans
+    (the chained window launches of one windowed sweep overlap)."""
+    total, reach = 0.0, -float("inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in events):
+        total += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return total
+
+
+def host_us(fn, reps: int, rounds: int = 5) -> float:
+    """Host microseconds per call of ``fn``: ``time.perf_counter`` over
+    ``reps`` calls with no synchronisation inside the loop (the wrapper's
+    checks, allocations and launch, not the kernel); the median of
+    ``rounds`` such loops, since the host's clock is shared."""
+    import statistics
+    import torch
+    fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per_call.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def measure(name, kern, plain, reps, plain_reps) -> dict:
+    """Event-per-call ms, the kernel's device ms and the host µs per call
+    of ``kern``, and the plain version's ms."""
+    return {"ms": time_ms(kern, reps=reps),
+            "device_ms": device_ms(kern, reps, name),
+            "host_us": host_us(kern, reps),
+            "plain_ms": time_ms(plain, reps=plain_reps, warmup=1)}
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def max_abs_err(a, b) -> float:
@@ -479,7 +568,7 @@ def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
             "u": u, "v": v}
 
 
-def time_relax(dev, what, g, rank, roots, batch, sweeps) -> dict:
+def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
     """The relaxation kernels, and their plain versions, on one mid-build
     state (``sweeps`` sweeps from the top roots, all trees live, dense
     prop): the dense ``ell_relax`` always, ``ell_relax_windowed`` too
@@ -527,15 +616,17 @@ def time_relax(dev, what, g, rank, roots, batch, sweeps) -> dict:
                 f"{name} != ell_relax at the {what} state")
         err = max(max_abs_err(kd, pd), max_abs_err(km, pm))
         del pd, pm
-        ms = time_ms(kern, reps=20)
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        m = measure(name, kern, plain, reps=reps, plain_reps=3)
+        out[name] = dict(m, max_abs_err=err, bound_ms=bnd[0],
+                         bound_by=bnd[1])
+        dms = m["device_ms"]
         log(f"time {name} at the {what} state B={B} n={n} ELL width {deg}"
             f", {E} finite in-edges ({E / n:.3f} per vertex), {geometry}:"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}); {bnd[0] / ms * 100:.1f}% of the "
-            "bound")
+            f" kernel {m['ms']:.4f} ms per call (events), device "
+            f"{fmt_ms(dms)}, host {m['host_us']:.1f} us per call, plain "
+            f"{m['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+            f"{bnd[0] / (dms or m['ms']) * 100:.1f}% of the bound "
+            "(device time)")
     return out
 
 
@@ -558,8 +649,7 @@ def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16) -> None:
     batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
                          max_sweeps=4, layout=lay)          # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
                                   max_sweeps=sweeps, layout=lay)
         torch.cuda.synchronize()
@@ -568,16 +658,6 @@ def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16) -> None:
         log(f"trace {what}: not measured (the profile holds no device "
             "time)")
         return
-
-    def covered(events):
-        """Microseconds covered by the union of the events' spans (the
-        windows of one sweep may overlap)."""
-        total, reach = 0.0, -float("inf")
-        for start, end in sorted((e.time_range.start, e.time_range.end)
-                                 for e in events):
-            total += max(0.0, end - max(start, reach))
-            reach = max(reach, end)
-        return total
 
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern))
@@ -614,14 +694,16 @@ def time_label_query(dev, scale) -> dict:
     require(torch.equal(kd, pd) and torch.equal(kh, ph),
             "label_query != plain at the road serving shape")
     Q, L = lops[0].shape
-    ms = time_ms(lambda: label_query(*lops), reps=100)
-    plain_ms = time_ms(lambda: label_query_ref(*lops), reps=20)
+    m = measure("label_query", lambda: label_query(*lops),
+                lambda: label_query_ref(*lops), reps=100, plain_reps=20)
     bnd = label_query_bound_ms(Q, L)
-    log(f"time label_query Q={Q} L={L}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
-        f"{bnd[0] / ms * 100:.1f}% of the bound")
-    return {"max_abs_err": max_abs_err(kd, pd), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    log(f"time label_query Q={Q} L={L}: kernel {m['ms']:.4f} ms per call "
+        f"(events), device {fmt_ms(m['device_ms'])}, host "
+        f"{m['host_us']:.1f} us per call, plain {m['plain_ms']:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"{bnd[0] / (m['device_ms'] or m['ms']) * 100:.1f}% of the bound")
+    return dict(m, max_abs_err=max_abs_err(kd, pd), bound_ms=bnd[0],
+                bound_by=bnd[1])
 
 
 def phase_dense(dev, kernels) -> dict:
@@ -633,6 +715,8 @@ def phase_dense(dev, kernels) -> dict:
     from repro_torch.kernels.minplus import (dense_weights, minplus,
                                              minplus_plain,
                                              plant_fixpoint_dense)
+    mp = importlib.import_module("repro_torch.kernels.minplus.minplus")
+    minplus_geometry = mp.launch_geometry
     from repro_torch.sssp import batched_sssp_maxrank
     t0 = time.perf_counter()
     g = scale_free(DENSE_N, attach=2, seed=0)
@@ -661,6 +745,10 @@ def phase_dense(dev, kernels) -> dict:
         f"its rule ({int(emit.sum())} labels); launches {launches}")
 
     ops = (dist, mrank, w)
+    kern = lambda: minplus(*ops)                        # noqa: E731
+    ms = time_ms(kern, reps=5, warmup=1)
+    dms = device_ms(kern, 3, "minplus")
+    hus = host_us(kern, 5)
     kd, km = minplus(*ops)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -673,15 +761,20 @@ def phase_dense(dev, kernels) -> dict:
             "minplus != plain at the dense block's shape")
     err = max(max_abs_err(kd, pd), max_abs_err(km, pm))
     del pd, pm
-    ms = time_ms(lambda: minplus(*ops), reps=5, warmup=1)
     B, K = dist.shape
     N = w.shape[1]
     bnd = minplus_bound_ms(B, K, N)
-    log(f"time minplus B={B} K={K} N={N}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms (once), bound {bnd[0]:.4f} ms ({bnd[1]}); "
-        f"{bnd[0] / ms * 100:.1f}% of the bound")
+    gx, gy, blocks, waves = minplus_geometry(
+        B, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    log(f"time minplus B={B} K={K} N={N} ({blocks} blocks of "
+        f"{mp.TB} x {mp.TN}, {waves:.3f} waves at {mp.BLOCKS_PER_SM} blocks "
+        f"per SM): kernel {ms:.4f} ms per "
+        f"call (events), device {fmt_ms(dms)}, host {hus:.1f} us per "
+        f"call, plain {plain_ms:.4f} ms (once), bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); {bnd[0] / (dms or ms) * 100:.1f}% of the bound")
     return {"launches": launches,
-            "minplus": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "minplus": {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                        "host_us": hus, "plain_ms": plain_ms,
                         "bound_ms": bnd[0], "bound_by": bnd[1]}}
 
 
@@ -691,6 +784,26 @@ def road_graph():
     g = grid_road(ROAD_ROWS, ROAD_COLS)
     rank = degree_ranking(g)
     log(f"road graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    return g, rank
+
+
+def road_mid_graph():
+    from repro_torch.graphs import degree_ranking, grid_road
+    t0 = time.perf_counter()
+    g = grid_road(MID_ROAD_SIDE, MID_ROAD_SIDE)
+    rank = degree_ranking(g)
+    log(f"road-mid graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    return g, rank
+
+
+def random_mid_graph():
+    from repro_torch.graphs import degree_ranking, random_connected
+    t0 = time.perf_counter()
+    g = random_connected(MID_RANDOM_N, extra_edges=MID_RANDOM_N, seed=0)
+    rank = degree_ranking(g)
+    log(f"random-mid graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
         f"set-up {time.perf_counter() - t0:.1f} s")
     return g, rank
 
@@ -754,7 +867,26 @@ def main() -> int:
     g, rank = exact["graph"]
     times = {"ell_relax": time_relax(dev, "exactness", g, rank,
                                      rank_order(rank), EXACT_BATCH,
-                                     sweeps=32)["ell_relax"]}
+                                     sweeps=32, reps=200)["ell_relax"]}
+    trace_sweeps(dev, "exactness", g, rank, rank_order(rank), EXACT_BATCH,
+                 sweeps=64)
+    # the dense route at a realistic size: two mid-build states whose
+    # planes just fit half the L2 (timing states, not build phases)
+    mid = {}
+    for what, make in (("road-mid", road_mid_graph),
+                       ("random-mid", random_mid_graph)):
+        g, rank = make()
+        r = time_relax(dev, what, g, rank, rank_order(rank), ROAD_BATCH,
+                       sweeps=MID_SWEEPS[what], reps=50)
+        require(list(r) == ["ell_relax"], f"{what}: planes outgrow half "
+                "the L2, so the state is not on the dense route")
+        mid[what] = r["ell_relax"]
+        del g, rank
+
+    dense = phase_dense(dev, kernels)
+    add(dense["launches"])
+    times["minplus"] = dense["minplus"]
+    torch.cuda.empty_cache()
 
     g, rank = road_graph()
     road = phase_scale(dev, kernels, "road", g, rank, ROAD_BATCH,
@@ -777,16 +909,17 @@ def main() -> int:
     del g, rank, rnd
     torch.cuda.empty_cache()
 
-    dense = phase_dense(dev, kernels)
-    add(dense["launches"])
-    times["minplus"] = dense["minplus"]
     # the dense-vs-windowed comparison on the road and random states
     # rides along as extra fields
-    times["ell_relax"].update(road=road_relax["ell_relax"],
+    times["ell_relax"].update(road_mid=mid["road-mid"],
+                              random_mid=mid["random-mid"],
+                              road=road_relax["ell_relax"],
                               random=rnd_relax["ell_relax"])
     times["ell_relax_windowed"] = dict(road_relax["ell_relax_windowed"],
                                        random=rnd_relax["ell_relax_windowed"])
     headline = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # device_ms and host_us of every kernel ride along beside the
+    # headline keys
     records = [record(name, *SOURCES[name], launches[name],
                       t["max_abs_err"], t["ms"], t["plain_ms"],
                       (t["bound_ms"], t["bound_by"]),

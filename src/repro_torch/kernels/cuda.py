@@ -13,6 +13,7 @@ can show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -118,26 +119,55 @@ def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:
 def check_tensors(kernel: str, device, want) -> None:
     """Raise ValueError unless every ``(name, tensor, dtype, shape)`` of
     ``want`` lies on CUDA ``device`` with that dtype and shape
-    (``None`` in a shape matches any size) and is contiguous."""
+    (``None`` in a shape matches any size) and is contiguous.
+
+    One pass over plain attributes: this runs on every launch, and a
+    short kernel waits for it."""
+    idx = device.index if device.type == "cuda" else -2
     for name, t, dtype, shape in want:
-        if t.device != device or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != idx:
             raise ValueError(f"{kernel}: {name} is on {t.device}; every "
                              f"operand must be on {device} (CUDA)")
         if t.dtype != dtype:
             raise ValueError(f"{kernel}: {name} is {t.dtype}, "
                              f"expected {dtype}")
-        if len(t.shape) != len(shape) or any(
-                s is not None and s != x for s, x in zip(shape, t.shape)):
+        ts = t.shape
+        if len(ts) != len(shape) or any(
+                s is not None and s != x for s, x in zip(shape, ts)):
             raise ValueError(f"{kernel}: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
+                             f"{tuple(ts)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+_SM_COUNT = {}
+_SAME_DEVICE = contextlib.nullcontext()
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (read once per device)."""
+    idx = device.index
+    if idx not in _SM_COUNT:
+        import torch
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def on_device(device):
+    """A context that makes ``device`` the current CUDA device for a
+    launch; a no-op when it already is."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+def current_stream(device) -> int:
+    """PyTorch's current stream on ``device``, as the launcher's handle:
+    the raw ``cudaStream_t``, read without building a
+    ``torch.cuda.Stream`` object on every launch."""
+    import torch
+    idx = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)

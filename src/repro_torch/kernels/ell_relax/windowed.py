@@ -15,8 +15,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.cuda import (CudaKernel, check_tensors, ptr,
-                                      stream_of)
+from repro_torch.kernels.cuda import (CudaKernel, check_tensors,
+                                      current_stream, on_device)
 from repro_torch.kernels.ell_relax.ell_relax import plane_specs
 
 KERNEL = CudaKernel(
@@ -63,12 +63,11 @@ def ell_relax_windowed(dist, mrank, prop, alive, layout, rank):
     out_m = torch.empty_like(mrank)
     if B and n:
         win_tiles = (ctypes.c_longlong * (nw + 1))(*s.win_tiles)
-        with torch.cuda.device(dist.device):
-            KERNEL.launch(ptr(dist), ptr(mrank), ptr(prop), ptr(alive),
-                          ptr(s.seg_row), ptr(s.seg_flags), ptr(s.seg_end),
-                          ptr(s.tile_segs), ptr(s.tile_edges),
-                          ptr(s.edge_src), ptr(s.edge_w), ptr(rank),
-                          ptr(s.bare_rows), ptr(out_d), ptr(out_m),
-                          ctypes.cast(win_tiles, ctypes.c_void_p), nw,
-                          s.bare_rows.shape[0], E, B, n, stream_of(dist))
+        with on_device(dist.device):
+            KERNEL.launch(*(t.data_ptr() for t in (
+                dist, mrank, prop, alive, s.seg_row, s.seg_flags,
+                s.seg_end, s.tile_segs, s.tile_edges, s.edge_src, s.edge_w,
+                rank, s.bare_rows, out_d, out_m)),
+                ctypes.cast(win_tiles, ctypes.c_void_p), nw,
+                s.bare_rows.shape[0], E, B, n, current_stream(dist.device))
     return out_d, out_m

@@ -14,8 +14,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.cuda import (CudaKernel, check_tensors, ptr,
-                                      stream_of)
+from repro_torch.kernels.cuda import (CudaKernel, check_tensors,
+                                      current_stream, on_device)
 
 KERNEL = CudaKernel(
     "label_query",
@@ -37,10 +37,11 @@ def label_query(hubs_u, dist_u, hubs_v, dist_v):
     out_d = torch.empty(Q, dtype=torch.float32, device=hubs_u.device)
     out_h = torch.empty(Q, dtype=torch.int32, device=hubs_u.device)
     if Q and L:
-        with torch.cuda.device(hubs_u.device):
-            KERNEL.launch(ptr(hubs_u), ptr(dist_u), ptr(hubs_v),
-                          ptr(dist_v), ptr(out_d), ptr(out_h), Q, L,
-                          stream_of(hubs_u))
+        with on_device(hubs_u.device):
+            KERNEL.launch(hubs_u.data_ptr(), dist_u.data_ptr(),
+                          hubs_v.data_ptr(), dist_v.data_ptr(),
+                          out_d.data_ptr(), out_h.data_ptr(), Q, L,
+                          current_stream(hubs_u.device))
     elif Q:
         out_d.fill_(torch.inf)
         out_h.fill_(-1)

@@ -14,7 +14,12 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   the query kernel, not the windowed one; with an L2 that forces
   windows it launches only the windowed sweep and still equals the CPU
   build;
-- dense-block PLaNT on the card equals the ELL engine.
+- dense-block PLaNT on the card equals the ELL engine;
+- the dense sweep at shapes that take each tree-group size G of its
+  launch geometry, with all-padding rows, rows past the shared-memory
+  edge buffer, one tree alive and none; the (min, +) product at B and
+  K, N ragged around its output tile and its K stage, with ties across
+  stages and all-unreachable columns.
 """
 
 import copy
@@ -35,6 +40,9 @@ from repro_torch.kernels.ell_relax import (WINDOWED_KERNEL, ell_relax,
                                            ell_sweep_bucketed_plain,
                                            ell_sweep_plain, sweep_layout)
 from repro_torch.kernels.ell_relax import layout as port_layout
+from repro_torch.kernels.ell_relax.ell_relax import (EDGE_SLOTS, TILE_V,
+                                                     launch_geometry)
+from repro_torch.kernels.cuda import sm_count
 from repro_torch.kernels.label_query import KERNEL as LABEL_QUERY
 from repro_torch.kernels.label_query import query_table
 from repro_torch.kernels.minplus import KERNEL as MINPLUS
@@ -252,3 +260,57 @@ def test_new_wrappers_refuse_wrong_dtypes(cuda_device):
         minplus(d, m, w[:3])
     with pytest.raises(ValueError, match="CUDA"):
         minplus(d, m, w.cpu())
+
+
+@pytest.mark.parametrize("B,n,deg,kind,G", [
+    (1, 5000, 8, "random", 1), (3, 777, 17, "random", 1),
+    (16, 4096, 8, "random", 1), (33, 1000, 8, "random", 1),
+    (4, 540_000, 8, "random", 1), (4, 541_000, 8, "random", 2),
+    (3, 1_200_000, 4, "random", 2), (16, 150_000, 8, "random", 2),
+    (16, 300_000, 8, "random", 4), (5, 3000, 40, "random", 1),
+    (16, 3000, 40, "pad", 1), (4, 600_000, 40, "pad", 2),
+    (16, 4096, 8, "retired", 1), (4, 600_000, 8, "retired", 2),
+    (16, 300_000, 6, "dead", 4)])
+def test_ell_relax_tree_groups_equal_plain(cuda_device, B, n, deg, kind, G):
+    """Each tree-group size G (on an H100's 132 SMs: below and above
+    the B * n where G changes), the padding-only rows ("pad": every
+    fifth row), the fold from device memory (deg 40: TILE_V * deg passes
+    the edge buffer), one tree alive ("retired") and none ("dead")."""
+    assert launch_geometry(B, n, sm_count(cuda_device))[0] == G
+    assert (TILE_V * deg > EDGE_SLOTS) == (deg == 40)
+    state = sweep_state(np.random.default_rng(B * 7 + deg), B, n, deg,
+                        cuda_device)
+    if kind == "pad":
+        state[5][::5] = torch.inf
+    elif kind in ("retired", "dead"):
+        state[2] = state[0].clone()         # dense prop: every tree relaxes
+        state[3][:] = False
+        state[3][B // 2] = kind == "retired"
+    kd, km = ell_relax(*state)
+    pd, pm = ell_sweep_plain(*state)
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+    if kind == "dead":
+        assert torch.equal(kd, state[0]) and torch.equal(km, state[1])
+
+
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("K,N", [(127, 129), (129, 257), (257, 127),
+                                 (96, 256), (33, 384)])
+def test_minplus_ragged_tiles_equal_plain(cuda_device, B, K, N):
+    """B, K and N around the 64 x 128 output tile and the 32-deep K
+    stage (N % 4 == 0 copies W as 16 B vectors, else 4 B), with few
+    distinct values (ties across stages) and all-unreachable columns."""
+    rng = np.random.default_rng(B * 1000 + K + N)
+    dist = np.where(rng.random((B, K)) < 0.7, rng.integers(0, 4, (B, K)),
+                    np.inf).astype(np.float32)
+    mrank = np.where(np.isfinite(dist), rng.integers(0, 50, (B, K)),
+                     -1).astype(np.int32)
+    w = np.where(rng.random((K, N)) < 0.2, rng.integers(1, 4, (K, N)),
+                 np.inf).astype(np.float32)
+    w[:, ::7] = np.inf
+    ops = [torch.as_tensor(x, device=cuda_device) for x in (dist, mrank, w)]
+    kd, km = minplus(*ops)
+    pd, pm = minplus_plain(*ops)
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+    assert not bool(torch.isfinite(kd[:, ::7]).any())
+    assert bool((km[:, ::7] == -1).all())
