@@ -11,8 +11,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    ``torch.equal`` at ragged shapes (ell_relax: deg 1..40, B in
    {1, 4, 32}, retired trees, inf padding; ell_relax_windowed: the same
    at 2, 3, 4 and 7 forced source windows against the bucketed plain
-   sweep; label_query: L in {8, 288, 700} with ties and disjoint rows;
-   minplus: ragged (B, K, N), all-unreachable and tie cases); the
+   sweep; label_query's operand form: L in {8, 288, 700} with ties and
+   disjoint rows; its table form through ``query_table``: L in
+   {1, 3, 8, 9, 32, 33, 288, 700} x Q in {1, 45, 1000, 65,537} with
+   counts 0..L, repeated hubs, ties, disjoint rows, u == v and negative
+   ids; minplus: ragged (B, K, N), all-unreachable and tie cases); the
    windowed sweep also at B in {3, 5, 33}, with a hub row longer than
    a tile's edge buffer, an empty window, one tree alive and none;
 3. exactness: grid_road(64, 64) (n = 4096), a full PLaNT build on the
@@ -33,7 +36,9 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    node — 8 unpruned trees in batches of 4, label cap 8 — through the
    source-windowed sweep, then 65,536 qlsn queries through the serving
    tier; every label of one root is checked against Dijkstra and the
-   served answers against the plain query;
+   served answers against the plain query, and one more flush is split
+   into the submit's per-ticket host work, the answer fn (host wall and
+   device time) and the flush's draining;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
@@ -50,14 +55,21 @@ Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
 state of the exactness graph (B = 16) and on the two mid-size states,
 both relaxation kernels on the same mid-build states of the road and
-the random graph (the dense-vs-windowed comparison), label_query at
-the road serving shape, minplus at B = 64, K = N = 32,768. Each kernel
-gets three times: ``ms``, CUDA events around a loop of wrapper calls
+the random graph (the dense-vs-windowed comparison), minplus at
+B = 64, K = N = 32,768, and the serving entry point ``query_table`` on
+four states of Q = 65,536 pairs: the exactness build's table (L = 288),
+a synthetic full table (L = count = 256, hubs from a shared pool), the
+road table (L = 8) and the random table (L = 32), each held equal to
+the plain query and shown to be one launch of the hand-written kernel
+and no other device work by its profiler window; label_query's operand
+form stays timed at the road serving shape. Each kernel gets three
+times: ``ms``, CUDA events around a loop of wrapper calls
 (the host may pace it); ``device_ms``, the kernel's own device time per
 call from a ``torch.profiler`` window over the same calls; and
 ``host_us``, the wrapper's host cost per call (``time.perf_counter``,
 no synchronisation inside the loop). A relaxation bound counts the
-adjacency's finite in-edges, not its padded width.
+adjacency's finite in-edges, not its padded width; a query bound the
+rows' valid prefixes (their counts), not their padded width.
 The last lines are the card (``nvidia-smi`` name and power limit), one
 JSON object with the per-kernel record, and the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest
@@ -99,6 +111,9 @@ MID_ROAD_SIDE = 896               # n = 802,816: 25.7 MB of planes
 MID_RANDOM_N = 786_432            # 25.2 MB of planes
 MID_SWEEPS = {"road-mid": 128, "random-mid": 8}
 SERVE_Q = 65_536
+# the synthetic full-row query state (no graph behind it): L = count =
+# 256, hubs from a shared pool so rows overlap, a table past the L2
+SYNTH_N, SYNTH_L, SYNTH_POOL = 262_144, 256, 1024
 
 
 def log(msg: str) -> None:
@@ -133,15 +148,13 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 #: the device-side name of each wrapper's kernel, as the profiler shows it
 DEVICE_NAMES = {"ell_relax": "ell_relax_kernel",
                 "ell_relax_windowed": "relax_tiles_kernel",
-                "label_query": "label_query_kernel",
+                "label_query": "label_query_",
                 "minplus": "minplus_kernel"}
 
 
-def device_ms(fn, reps: int, kernel: str):
-    """The kernel's own device time per call of ``fn``: the device time
-    its events cover in a ``torch.profiler`` window over ``reps`` calls
-    (the union of their spans), divided by ``reps``; None when the
-    profile holds no device event of it."""
+def device_events(fn, reps: int):
+    """The device events (kernels and copies) of ``reps`` calls of
+    ``fn`` in one ``torch.profiler`` window (CUDA activity only)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -151,9 +164,16 @@ def device_ms(fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    name = DEVICE_NAMES[kernel]
-    evs = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and name in e.name]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """The kernel's own device time per call of ``fn``: the device time
+    its events cover in a ``torch.profiler`` window over ``reps`` calls
+    (the union of their spans), divided by ``reps``; None when the
+    profile holds no device event of it."""
+    evs = [e for e in device_events(fn, reps)
+           if DEVICE_NAMES[kernel] in e.name]
     if not evs:
         return None
     return covered(evs) / 1e3 / reps
@@ -299,6 +319,72 @@ def label_operands(rng, Q, L, device):
             for x in (hubs_u, dist_u, hubs_v, dist_v)]
 
 
+def table_operands(rng, n, L, Q, device):
+    """A label table of ``n`` rows at width ``L`` and ``Q`` query pairs
+    (the card tests' state): counts 0..L (row 0 empty, row 1 full), hubs
+    from a pool of about L (rows repeat hubs), distances 0..4 (ties),
+    every 11th row on hubs of its own (disjoint), every 13th pair
+    u == v, every 5th u and 7th v a negative id."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    count = rng.integers(0, L + 1, n).astype(np.int32)
+    count[0], count[1] = 0, L
+    slot = np.arange(L)[None, :] < count[:, None]
+    h = rng.integers(0, max(3, L), (n, L))
+    h[::11] += 1_000_000 + np.arange(0, n, 11)[:, None] * L
+    h = np.where(slot, h, -1).astype(np.int32)
+    d = np.where(slot, rng.integers(0, 5, (n, L)),
+                 np.inf).astype(np.float32)
+    u = rng.integers(0, n, Q)
+    v = rng.integers(0, n, Q)
+    v[::13] = u[::13]
+    u[::5] -= n
+    v[::7] -= n
+    return (interop.label_table(h, d, count, device),
+            torch.as_tensor(u, device=device),
+            torch.as_tensor(v, device=device))
+
+
+def synthetic_table(dev, n, L, pool, seed, same_row=False, count=None):
+    """A label table made on the card from ``seed``: ``count`` (default
+    L) labels a row, hubs from a pool of ``pool`` ids, so rows overlap,
+    integral distances below 2^20, and (-1, +inf) past the count; with
+    ``same_row`` every row holds the same hubs in the same order (as one
+    superstep of ``count`` trees leaves the road and random tables).
+    Synthetic: no graph behind it."""
+    import torch
+    from repro_torch.core.labels import LabelTable
+    c = L if count is None else count
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if same_row:
+        hubs = torch.randint(0, pool, (1, L), generator=g, device=dev,
+                             dtype=torch.int32).expand(n, L).contiguous()
+    else:
+        hubs = torch.randint(0, pool, (n, L), generator=g, device=dev,
+                             dtype=torch.int32)
+    dist = torch.randint(0, 1 << 20, (n, L), generator=g,
+                         device=dev).float()
+    hubs[:, c:] = -1
+    dist[:, c:] = torch.inf
+    return LabelTable(hubs, dist,
+                      torch.full((n,), c, dtype=torch.int32, device=dev))
+
+
+def query_pairs_in_chunks(table, u, v):
+    """The plain query (`labels.query_pairs`) over query chunks that keep
+    its [q, L, L] cube near 2^28 elements; it is per query, so the
+    chunks change no answer."""
+    import torch
+    from repro_torch.core import labels as lbl
+    step = max(1, 2 ** 28 // max(1, table.cap ** 2))
+    parts = [lbl.query_pairs(table, u[i:i + step], v[i:i + step])
+             for i in range(0, u.shape[0], step)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
 def minplus_operands(rng, B, K, N, device):
     """Random (min, +) operands: integral distances and weights (many
     equal candidates), unreachable rows, +inf off-edge weights."""
@@ -333,9 +419,21 @@ def relax_bound_ms(B, n, E, live):
 
 
 def label_query_bound_ms(Q, L):
-    """Four [Q, L] operand reads and two [Q] outputs, and Q * L * L hub
-    compares (plus an add on a match) at the f32 rate."""
+    """The operand form: four [Q, L] operand reads and two [Q] outputs,
+    and Q * L * L hub compares at the f32 rate."""
     return bound(16 * Q * L + 8 * Q, Q * L * L)
+
+
+def query_table_bound_ms(table, u, v):
+    """The table form, counted from this run's rows: per query the two
+    int64 ids, the two counts, the valid prefix of both rows (hub and
+    distance, 8 B a slot) and the two outputs; count_u * count_v hub
+    compares at the f32 rate."""
+    cu = table.count[u].double()
+    cv = table.count[v].double()
+    Q = u.shape[0]
+    return bound(Q * (16 + 8 + 8) + 8 * float((cu + cv).sum()),
+                 float((cu * cv).sum()))
 
 
 def minplus_bound_ms(B, K, N):
@@ -362,7 +460,8 @@ def phase_parity(dev) -> None:
                                                ell_sweep_bucketed_plain,
                                                ell_sweep_plain)
     from repro_torch.kernels.ell_relax.layout import TILE_EDGES
-    from repro_torch.kernels.label_query import label_query, label_query_ref
+    from repro_torch.kernels.label_query import (label_query,
+                                                 label_query_ref, query_table)
     from repro_torch.kernels.minplus import minplus, minplus_plain
     rng = np.random.default_rng(11)
     for B in (1, 4, 32):
@@ -410,8 +509,21 @@ def phase_parity(dev) -> None:
                     f"label_query != plain at Q={Q} L={L}")
             require(bool(torch.isinf(kd[::7]).all()),
                     "disjoint rows must answer +inf")
-    log("parity label_query: torch.equal (dist, hub) at L in {8,288,700} "
-        "x Q in {1,45,1000} — ties, disjoint rows")
+    log("parity label_query (operand form): torch.equal (dist, hub) at L "
+        "in {8,288,700} x Q in {1,45,1000} — ties, disjoint rows, -1 "
+        "inside rows")
+    for L in (1, 3, 8, 9, 32, 33, 288, 700):
+        for Q in (1, 45, 1000, 65_537):
+            table, u, v = table_operands(rng, 3000, L, Q, dev)
+            kd, kh = query_table(table, u, v)
+            pd, ph = query_pairs_in_chunks(table, u, v)
+            torch.cuda.synchronize()
+            require(torch.equal(kd, pd) and torch.equal(kh, ph),
+                    f"query_table != plain at Q={Q} L={L}")
+    log("parity label_query (table form, query_table): torch.equal "
+        "(dist, hub) at L in {1,3,8,9,32,33,288,700} x Q in "
+        "{1,45,1000,65537} — counts 0..L, repeated hubs, ties, disjoint "
+        "rows, u == v, negative ids")
     for B, K, N in ((1, 1, 1), (3, 5, 7), (8, 128, 128), (64, 130, 250),
                     (70, 333, 65)):
         ops = minplus_operands(rng, B, K, N, dev)
@@ -479,7 +591,7 @@ def phase_exactness(dev, kernels) -> dict:
         f"{idx.total_labels} labels (ALS {idx.als:.2f}, cap "
         f"{idx.report.cap}); 4096 query_with_hub == scipy Dijkstra; "
         f"save->load->serve(qlsn)->flush == query; launches {counts}")
-    return {"launches": counts, "graph": (g, rank)}
+    return {"launches": counts, "graph": (g, rank), "table": idx.table}
 
 
 def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
@@ -564,8 +676,47 @@ def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
     require(bool(np.isfinite(served).all()), f"{what}: every pair shares "
             "the top root, so every answer is finite")
     log(f"{what} serve: {SERVE_Q} served answers == plain query_pairs")
+    serve_split(idx, u, v, what)
     return {"launches": launches, "roots": roots, "table": table,
             "u": u, "v": v}
+
+
+def serve_split(idx, u, v, what) -> None:
+    """One more SERVE_Q-query flush through a fresh ``QueryService`` on
+    the index's qlsn answer fn, split into the submit's own host time
+    (its per-ticket Python), the answer fn (its host wall, and the
+    stream span that CUDA events around it cover: the index copies, the
+    kernel and the copy back) and the flush's draining of tickets."""
+    import torch
+    from repro_torch.serve import QueryService, make_answer_fn
+    answer = make_answer_fn(idx.store, "qlsn")
+    spans = []
+
+    def timed(uu, vv):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = answer(uu, vv)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    srv = QueryService(timed, batch_size=SERVE_Q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.submit(u, v)                # the last ticket fills the batch
+    t1 = time.perf_counter()
+    srv.flush()
+    t2 = time.perf_counter()
+    require(len(spans) == 1, f"{what} serve split: {len(spans)} launches")
+    st = srv.stats_
+    host = st.warmup_s + st.busy_s
+    stream = spans[0][0].elapsed_time(spans[0][1])
+    log(f"{what} serve split: {SERVE_Q} queries in {t2 - t0:.4f} s: "
+        f"submit's per-ticket host work {t1 - t0 - host:.4f} s "
+        f"({(t1 - t0 - host) / (t2 - t0) * 100:.1f} %), the answer fn "
+        f"{host * 1e3:.3f} ms of host wall ({host / (t2 - t0) * 100:.2f} "
+        f"%; its stream span {stream:.4f} ms by CUDA events), the "
+        f"flush's draining {t2 - t1:.4f} s")
 
 
 def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
@@ -681,12 +832,58 @@ def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16) -> None:
         log(f"trace {what}:   {t / n / 1e3:.4f} ms per sweep  {short}")
 
 
-def time_label_query(dev, scale) -> dict:
+def time_query_table(dev, what, table, u, v, reps=100) -> dict:
+    """``query_table`` on one state: held equal to the plain query, then
+    ``device_ms`` (from a profiler window over ``reps`` calls, which must
+    hold no device work but the hand-written kernel; the mean of the
+    launches it recorded, since a window late in a long run may drop
+    some), ``ms`` (events per call), ``host_us``, the plain version's
+    ms, the bound from this run's counts and the launches a call (from
+    the kernel's count, which must be one)."""
+    import torch
+    from repro_torch.kernels.label_query import KERNEL, query_table
+    call = lambda: query_table(table, u, v)             # noqa: E731
+    plain = lambda: query_pairs_in_chunks(table, u, v)  # noqa: E731
+    kd, kh = call()
+    pd, ph = plain()
+    torch.cuda.synchronize()
+    require(torch.equal(kd, pd) and torch.equal(kh, ph),
+            f"query_table != plain at the {what} state")
+    err = max_abs_err(kd, pd)
+    del pd, ph
+    before = KERNEL.launches
+    evs = device_events(call, reps)
+    launches = (KERNEL.launches - before - 1) / reps     # after a warm-up
+    names = sorted({e.name for e in evs})
+    require(launches == 1 and len(evs) <= reps and all(
+        DEVICE_NAMES["label_query"] in x for x in names),
+            f"query_table at the {what} state: {launches} launches and "
+            f"{len(evs)} device events a call ({names}); want one "
+            "label_query launch and no other device work")
+    dms = covered(evs) / 1e3 / len(evs) if evs else None
+    ms = time_ms(call, reps=reps)
+    hus = host_us(call, reps)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    bnd = query_table_bound_ms(table, u, v)
+    Q, L = u.shape[0], table.cap
+    counts = torch.cat([table.count[u], table.count[v]]).float()
+    log(f"time query_table at the {what} state (n={table.n}, L={L}, "
+        f"Q={Q}, mean count {float(counts.mean()):.2f}): device "
+        f"{fmt_ms(dms)} per call in {launches:g} launch and no other "
+        f"device work ({len(evs)} of {reps} launches in the profile: "
+        f"{', '.join(names) or 'none'}), events {ms:.4f} ms, host "
+        f"{hus:.1f} us, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); {bnd[0] / (dms or ms) * 100:.1f}% of the bound")
+    return {"device_ms": dms, "ms": ms, "host_us": hus,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "launches_per_call": launches, "max_abs_err": err}
+
+
+def time_label_operands(dev, table, u, v, reps=100) -> dict:
+    """The operand form on the rows of (u, v), gathered once outside the
+    timing: the kernel alone, without the row reads of the table form."""
     import torch
     from repro_torch.kernels.label_query import label_query, label_query_ref
-    table = scale["table"]
-    u = torch.as_tensor(scale["u"], device=dev)
-    v = torch.as_tensor(scale["v"], device=dev)
     lops = (table.hubs[u], table.dist[u], table.hubs[v], table.dist[v])
     kd, kh = label_query(*lops)
     pd, ph = label_query_ref(*lops)
@@ -695,15 +892,23 @@ def time_label_query(dev, scale) -> dict:
             "label_query != plain at the road serving shape")
     Q, L = lops[0].shape
     m = measure("label_query", lambda: label_query(*lops),
-                lambda: label_query_ref(*lops), reps=100, plain_reps=20)
+                lambda: label_query_ref(*lops), reps=reps, plain_reps=20)
     bnd = label_query_bound_ms(Q, L)
-    log(f"time label_query Q={Q} L={L}: kernel {m['ms']:.4f} ms per call "
-        f"(events), device {fmt_ms(m['device_ms'])}, host "
-        f"{m['host_us']:.1f} us per call, plain {m['plain_ms']:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}); "
+    log(f"time label_query (operand form) Q={Q} L={L}: kernel "
+        f"{m['ms']:.4f} ms per call (events), device "
+        f"{fmt_ms(m['device_ms'])}, host {m['host_us']:.1f} us per call, "
+        f"plain {m['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
         f"{bnd[0] / (m['device_ms'] or m['ms']) * 100:.1f}% of the bound")
     return dict(m, max_abs_err=max_abs_err(kd, pd), bound_ms=bnd[0],
                 bound_by=bnd[1])
+
+
+def random_pairs(dev, n, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.integers(0, n, SERVE_Q), device=dev),
+            torch.as_tensor(rng.integers(0, n, SERVE_Q), device=dev))
 
 
 def phase_dense(dev, kernels) -> dict:
@@ -865,6 +1070,13 @@ def main() -> int:
     exact = phase_exactness(dev, kernels)
     add(exact["launches"])
     g, rank = exact["graph"]
+    lq = {"exactness": time_query_table(
+        dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
+    table = synthetic_table(dev, SYNTH_N, SYNTH_L, SYNTH_POOL, seed=256)
+    lq["synthetic_256"] = time_query_table(
+        dev, f"synthetic L={SYNTH_L}", table,
+        *random_pairs(dev, SYNTH_N, 17), reps=20)
+    del table
     times = {"ell_relax": time_relax(dev, "exactness", g, rank,
                                      rank_order(rank), EXACT_BATCH,
                                      sweeps=32, reps=200)["ell_relax"]}
@@ -892,7 +1104,10 @@ def main() -> int:
     road = phase_scale(dev, kernels, "road", g, rank, ROAD_BATCH,
                        ROAD_TREES, ROAD_CAP)
     add(road["launches"])
-    times["label_query"] = time_label_query(dev, road)
+    ru, rv = (torch.as_tensor(road[x], device=dev) for x in ("u", "v"))
+    lq["road"] = time_query_table(dev, "road", road["table"], ru, rv)
+    lq["operand_road"] = time_label_operands(dev, road["table"], ru, rv)
+    del ru, rv
     road_relax = time_relax(dev, "road", g, rank, road["roots"],
                             ROAD_BATCH, sweeps=256)
     trace_sweeps(dev, "road", g, rank, road["roots"], ROAD_BATCH)
@@ -903,6 +1118,9 @@ def main() -> int:
     rnd = phase_scale(dev, kernels, "random", g, rank, RANDOM_BATCH,
                       RANDOM_TREES, RANDOM_CAP)
     add(rnd["launches"])
+    lq["random"] = time_query_table(
+        dev, "random", rnd["table"],
+        *(torch.as_tensor(rnd[x], device=dev) for x in ("u", "v")))
     rnd_relax = time_relax(dev, "random", g, rank, rnd["roots"],
                            RANDOM_BATCH, sweeps=8)
     trace_sweeps(dev, "random", g, rank, rnd["roots"], RANDOM_BATCH)
@@ -917,6 +1135,9 @@ def main() -> int:
                               random=rnd_relax["ell_relax"])
     times["ell_relax_windowed"] = dict(road_relax["ell_relax_windowed"],
                                        random=rnd_relax["ell_relax_windowed"])
+    # query_table on the road state is the headline; the other states
+    # and the operand form ride along
+    times["label_query"] = dict(lq.pop("road"), **lq)
     headline = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # device_ms and host_us of every kernel ride along beside the
     # headline keys

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the dense relaxation kernel and the (min, +) kernel of two or
-more checkouts of this repository on one CUDA card, in turns.
+"""Time the dense relaxation kernel, the (min, +) kernel and the label
+query of two or more checkouts of this repository on one CUDA card, in
+turns.
 
     python3 kernel_ab.py ROOT [ROOT ...]
 
@@ -18,7 +19,20 @@ measures, with ``chip_smoke.py``'s timers:
 - the whole exactness build (batch 16) on the card: its wall, whose
   sweeps are paced by the host;
 - dense-block PLaNT (scale_free(32,768), 64 roots): the fixpoint's wall
-  and launches, then ``minplus`` at B = 64, K = N = 32,768.
+  and launches, then ``minplus`` at B = 64, K = N = 32,768;
+- the serving entry point ``query_table(table, u, v)`` (its public API
+  in every checkout) on 65,536 random pairs over four tables: the
+  exactness build's (L = 288), a synthetic road-like table (n =
+  16,777,216, L = count = 8, every row the same 8 hubs in the same
+  order, as one superstep of 8 trees leaves the road table), a
+  synthetic random-like one (n = 4,194,304, L = 32, the same 8 hubs a
+  row and padding past them, as the random superstep leaves its
+  table) and a synthetic full table (L = count = 256, hubs from a
+  shared pool):
+  the device time all of a call's device work covers (gathers and
+  kernel alike), the device kernels a call runs, ms per call by CUDA
+  events and the host µs per call. The synthetic tables are made on
+  the card from a seed by this script, so every checkout gets the same.
 
 Every output is held equal to that checkout's plain version, and the
 outputs' digests must agree across checkouts. Prints one line per
@@ -35,6 +49,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+STATES = ("exactness", "road-mid", "random-mid", "dense", "query-exactness",
+          "query-road", "query-random", "query-synthetic-256")
 
 
 def digest(*ts) -> str:
@@ -73,6 +89,7 @@ def measure_root(root: Path) -> dict:
     from repro_torch.index import BuildPlan, build
     from repro_torch.kernels import all_kernels, build_all
     from repro_torch.kernels.ell_relax import ell_relax, ell_sweep_plain
+    from repro_torch.kernels.label_query import query_table
     from repro_torch.kernels.minplus import (dense_weights, minplus,
                                              plant_fixpoint_dense)
     dev = torch.device("cuda")
@@ -113,6 +130,7 @@ def measure_root(root: Path) -> dict:
             out[what]["sweeps"] = sum(r.sweeps
                                       for r in idx.report.supersteps)
             out[what]["digest"] += "/" + digest(*idx.table)
+            exact_table = idx.table
     g = scale_free(cs.DENSE_N, attach=2, seed=0)
     rank = degree_ranking(g)
     a = device_arrays(g, rank, dev)
@@ -133,6 +151,38 @@ def measure_root(root: Path) -> dict:
                     "ms": cs.time_ms(kern, reps=5, warmup=1),
                     "device_ms": cs.device_ms(kern, 3, "minplus"),
                     "digest": digest(dist, mrank, emit, kd, km)}
+    del w, dist, mrank, emit, kd, km
+    torch.cuda.empty_cache()
+    tables = {
+        "query-exactness": lambda: exact_table,
+        "query-road": lambda: cs.synthetic_table(
+            dev, cs.ROAD_ROWS * cs.ROAD_COLS, 8, cs.ROAD_ROWS * cs.ROAD_COLS,
+            seed=8, same_row=True),
+        "query-random": lambda: cs.synthetic_table(
+            dev, cs.RANDOM_N, cs.RANDOM_CAP, cs.RANDOM_N, seed=32,
+            same_row=True, count=cs.RANDOM_TREES),
+        "query-synthetic-256": lambda: cs.synthetic_table(
+            dev, cs.SYNTH_N, cs.SYNTH_L, cs.SYNTH_POOL, seed=256),
+    }
+    for what, make in tables.items():
+        table = make()
+        u, v = cs.random_pairs(dev, table.n, 13)
+        call = lambda: query_table(table, u, v)     # noqa: E731
+        d, h = call()
+        pd, ph = cs.query_pairs_in_chunks(table, u, v)
+        torch.cuda.synchronize()
+        cs.require(torch.equal(d, pd) and torch.equal(h, ph),
+                   f"query_table != plain at {what} in {root}")
+        reps = 20 if table.cap > 32 else 100
+        evs = cs.device_events(call, reps)
+        out[what] = {"ms": cs.time_ms(call, reps=reps),
+                     "device_ms": (cs.covered(evs) / 1e3 / reps
+                                   if evs else None),
+                     "kernels_per_call": len(evs) / reps,
+                     "host_us": cs.host_us(call, reps, rounds=9),
+                     "digest": digest(d, h)}
+        del table, d, h, pd, ph
+        torch.cuda.empty_cache()
     return out
 
 
@@ -156,18 +206,21 @@ def main() -> int:
             return 1
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         r = runs[-1]
-        for what in ("exactness", "road-mid", "random-mid", "dense"):
+        for what in STATES:
             m = r[what]
             extra = (f", fixpoint {m['fixpoint_s']:.3f} s, "
                      f"{m['launches']} launches" if what == "dense" else
                      f", host {m['host_us']:.1f} us per call")
+            if what.startswith("query-"):
+                extra += (f", {m['kernels_per_call']:g} device kernels a "
+                          "call")
             if what == "exactness":
                 extra += (f"; the build {m['build_s']:.3f} s, "
                           f"{m['sweeps']} sweeps")
             print(f"{root} {what}: {m['ms']:.4f} ms per call (events), "
                   f"device {cs.fmt_ms(m['device_ms'])}{extra}; outputs "
                   f"{m['digest']}", flush=True)
-    for what in ("exactness", "road-mid", "random-mid", "dense"):
+    for what in STATES:
         cs.require(len({r[what]["digest"] for r in runs}) == 1,
                    f"{what}: the checkouts' outputs differ")
     card = cs.card_line()

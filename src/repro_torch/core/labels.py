@@ -84,6 +84,22 @@ def insert_batch(table: LabelTable, roots: torch.Tensor, emit: torch.Tensor,
     return table, overflow
 
 
+def check_padding(table: LabelTable) -> None:
+    """Raise ValueError unless ``0 <= count <= cap`` and every slot at or
+    past a row's count holds ``(-1, +inf)``: the contract under which the
+    card's `label_query_rows`, which reads a row only below its count,
+    equals the plain query over the padded rows. One pass over the table
+    and one host sync."""
+    slot = torch.arange(table.cap, device=table.hubs.device)
+    past = slot[None, :] >= table.count[:, None]
+    broken = (past & ((table.hubs != -1) | (table.dist != torch.inf))).any()
+    broken |= ((table.count < 0) | (table.count > table.cap)).any()
+    if bool(broken):
+        raise ValueError("label table breaks the padding contract: every "
+                         "slot at or past count must hold (-1, +inf), with "
+                         "0 <= count <= cap")
+
+
 def query_pairs(table: LabelTable, u: torch.Tensor, v: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched PPSD query, plain version: min over common hubs of

@@ -1,8 +1,9 @@
 """`DenseStore` — one label table resident on one device.
 
-Queries gather the endpoints' label rows and intersect them through
-`repro_torch.kernels.label_query.query_table`: the hand-written kernel
-when the table is on the card, the plain version on the CPU.
+Queries intersect the endpoints' label rows through
+`repro_torch.kernels.label_query.query_table`: one launch of the
+hand-written kernel, which reads the rows from the table, when the
+table is on the card; the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ class DenseStore:
     kind = "dense"
 
     def __init__(self, table: LabelTable):
+        """Raises ValueError on a table whose padding breaks the query
+        kernel's contract (`labels.check_padding`)."""
+        lbl.check_padding(table)
         self._table = table
 
     @property

@@ -3,8 +3,8 @@
 Turns a label store into an ``answer(u, v) -> dist`` callable for one
 of the paper's §6.3 storage modes. This slice serves QLSN (every node
 holds all labels; the querying node intersects locally) over a
-:class:`DenseStore`: the answer gathers the label rows on the store's
-device and intersects them with the `label_query` kernel there. QFDL,
+:class:`DenseStore`: on the card the answer is one launch of the
+`label_query` kernel, which reads the label rows from the table. QFDL,
 QDOL and the other stores are still to port.
 """
 

@@ -19,10 +19,21 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   launch geometry, with all-padding rows, rows past the shared-memory
   edge buffer, one tree alive and none; the (min, +) product at B and
   K, N ragged around its output tile and its K stage, with ties across
-  stages and all-unreachable columns.
+  stages and all-unreachable columns;
+- the label query in its table form (``query_table``: one launch that
+  reads the rows itself, bounded by each row's count) and its operand
+  form, each equal to the plain version at widths around every group
+  size and the short/long split, counts 0..L, repeated hubs, ties,
+  disjoint rows, u == v and negative ids, and past the 1,024 slots a
+  warp stages at once; one launch and no other kernel per
+  ``query_table`` call; an id out of range is a device-side fault.
 """
 
 import copy
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,7 +55,7 @@ from repro_torch.kernels.ell_relax.ell_relax import (EDGE_SLOTS, TILE_V,
                                                      launch_geometry)
 from repro_torch.kernels.cuda import sm_count
 from repro_torch.kernels.label_query import KERNEL as LABEL_QUERY
-from repro_torch.kernels.label_query import query_table
+from repro_torch.kernels.label_query import label_query, query_table
 from repro_torch.kernels.minplus import KERNEL as MINPLUS
 from repro_torch.kernels.minplus import (dense_weights, minplus,
                                          minplus_plain,
@@ -314,3 +325,143 @@ def test_minplus_ragged_tiles_equal_plain(cuda_device, B, K, N):
     assert torch.equal(kd, pd) and torch.equal(km, pm)
     assert not bool(torch.isfinite(kd[:, ::7]).any())
     assert bool((km[:, ::7] == -1).all())
+
+
+def query_state(rng, n, L, Q, device):
+    """A label table of ``n`` rows at width ``L`` and ``Q`` query pairs:
+    counts 0..L (row 0 empty, row 1 full), hubs from a pool of about L
+    (rows repeat hubs), distances 0..4 (ties), every 11th row on hubs of
+    its own (disjoint from all others), every 13th pair u == v, and
+    every 5th u and 7th v a negative id."""
+    count = rng.integers(0, L + 1, n).astype(np.int32)
+    count[0], count[1] = 0, L
+    slot = np.arange(L)[None, :] < count[:, None]
+    h = rng.integers(0, max(3, L), (n, L))
+    h[::11] += 1_000_000 + np.arange(0, n, 11)[:, None] * L
+    h = np.where(slot, h, -1).astype(np.int32)
+    d = np.where(slot, rng.integers(0, 5, (n, L)),
+                 np.inf).astype(np.float32)
+    u = rng.integers(0, n, Q)
+    v = rng.integers(0, n, Q)
+    v[::13] = u[::13]
+    u[::5] -= n
+    v[::7] -= n
+    t = interop.label_table(h, d, count, device)
+    return t, torch.as_tensor(u, device=device), torch.as_tensor(
+        v, device=device)
+
+
+def plain_in_chunks(table, u, v):
+    """`labels.query_pairs` over query chunks that keep its [q, L, L]
+    cube near 2^26 elements (it is per query, so chunks change
+    nothing)."""
+    L = table.cap
+    step = max(1, 2 ** 26 // max(1, L * L))
+    parts = [labels.query_pairs(table, u[i:i + step], v[i:i + step])
+             for i in range(0, u.shape[0], step)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+@pytest.mark.parametrize("L", [1, 3, 8, 9, 32, 33, 288, 700])
+@pytest.mark.parametrize("Q", [1, 45, 1000, 65_537])
+def test_label_query_table_and_operand_forms_equal_plain(cuda_device, L, Q):
+    rng = np.random.default_rng(L * 100_003 + Q)
+    t, u, v = query_state(rng, 3000, L, Q, cuda_device)
+    pd, ph = plain_in_chunks(t, u, v)
+    LABEL_QUERY.launches = 0
+    kd, kh = query_table(t, u, v)
+    assert LABEL_QUERY.launches == 1
+    assert torch.equal(kd, pd) and torch.equal(kh, ph)
+    # the operand form on the gathered rows: every slot read, count = L
+    od, oh = label_query(t.hubs[u], t.dist[u], t.hubs[v], t.dist[v])
+    assert torch.equal(od, pd) and torch.equal(oh, ph)
+    # the state holds what it claims: disjoint pairs and u == v pairs
+    ru, rv = u % t.n, v % t.n
+    full = t.count[ru] > 0
+    assert bool(torch.isfinite(kd[(ru == rv) & full]).all())
+    if Q >= 1000:
+        assert bool(torch.isinf(kd).any()) and bool(torch.isfinite(kd).any())
+
+
+@pytest.mark.parametrize("L", [1100, 1101])
+def test_label_query_rows_past_one_tile(cuda_device, L):
+    """Rows wider than the 1,024 slots a warp stages at once: the v-row
+    goes through shared memory in several tiles (16 B vectors at
+    L = 1100, single slots at L = 1101)."""
+    rng = np.random.default_rng(L)
+    t, u, v = query_state(rng, 200, L, 300, cuda_device)
+    assert int(t.count.max()) > 1024
+    pd, ph = plain_in_chunks(t, u, v)
+    kd, kh = query_table(t, u, v)
+    assert torch.equal(kd, pd) and torch.equal(kh, ph)
+    od, oh = label_query(t.hubs[u], t.dist[u], t.hubs[v], t.dist[v])
+    assert torch.equal(od, pd) and torch.equal(oh, ph)
+
+
+@pytest.mark.parametrize("L", [8, 32, 288])
+def test_query_table_is_one_launch(cuda_device, L):
+    """A ``query_table`` call on the card runs one kernel, the
+    hand-written one: no gather, no fill, no copy (profiler names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(L)
+    t, u, v = query_state(rng, 500, L, 4096, cuda_device)
+    query_table(t, u, v)
+    torch.cuda.synchronize()
+    LABEL_QUERY.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        query_table(t, u, v)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert LABEL_QUERY.launches == 1
+    assert len(names) == 1 and "label_query" in names[0], names
+
+
+def test_label_query_table_refuses_wrong_operands(cuda_device):
+    t = labels.empty(10, 8, cuda_device)
+    ids = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="int64"):
+        query_table(t, ids.int(), ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        query_table(t, ids, ids.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        query_table(t, ids, ids[:2])
+    with pytest.raises(ValueError, match="int32"):
+        query_table(labels.LabelTable(t.hubs, t.dist, t.count.long()),
+                    ids, ids)
+
+
+def test_label_query_handles_empty_batches(cuda_device):
+    t = labels.empty(10, 8, cuda_device)
+    none = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    d, h = query_table(t, none, none)
+    assert d.shape == (0,) and h.shape == (0,)
+    ids = torch.arange(10, device=cuda_device)
+    d, h = query_table(t, ids, ids)            # every row empty
+    assert bool(torch.isinf(d).all()) and bool((h == -1).all())
+    # rows of width 0 (the plain version has no minimum over them)
+    x = torch.full((4, 0), -1, dtype=torch.int32, device=cuda_device)
+    d, h = label_query(x, x.float(), x, x.float())
+    assert bool(torch.isinf(d).all()) and bool((h == -1).all())
+
+
+def test_out_of_range_id_is_a_device_fault(cuda_device):
+    """An id outside [-n, n) stops the kernel with a device-side assert,
+    as tensor indexing does, instead of reading a stray row. It runs in
+    a child process: the fault ends that process's CUDA context."""
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import torch\n"
+        "from repro_torch.core import labels\n"
+        "from repro_torch.kernels.label_query import query_table\n"
+        "t = labels.empty(10, 8, 'cuda')\n"
+        "u = torch.tensor([3, 10], device='cuda')\n"
+        "query_table(t, u, u)\n"
+        "torch.cuda.synchronize()\n")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode != 0
+    assert "assert" in (res.stdout + res.stderr).lower()

@@ -8,8 +8,20 @@ reference package.
   row-major witness wins), widths that are not multiples of 128, and
   widths past the reference kernel's 512 wall;
 - ``insert_batch`` equals the reference's drop-mode scatter, overflow
-  flag and count clamp.
+  flag and count clamp;
+- the plain ``query_table`` equals the reference's ``query_pairs`` with
+  negative ids at the widths the card's kernel splits on;
+- the padding contract the card's table-form kernel relies on, ``(-1,
+  +inf)`` at and past each row's count, holds for tables the port
+  builds, for artifacts the reference saved and for ``interop``
+  tables, and ``DenseStore`` refuses a table that breaks it;
+- the kernel's launch geometry (lanes a query, warps a block, blocks)
+  as a pure function: each query served by exactly one group whose
+  lanes cover its slots.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,13 +29,24 @@ import torch
 
 import jax.numpy as jnp
 
+import repro.graphs as rg
 from repro.core import labels as ref_labels
+from repro.graphs.ranking import betweenness_ranking
+from repro.index import BuildPlan as RefPlan
+from repro.index import build as ref_build
 from repro.kernels.label_query import label_query_padded
 from repro.kernels.label_query import label_query_ref as ref_lq_ref
 from repro_torch import interop
 from repro_torch.core import labels
+from repro_torch.index import BuildPlan, CHLIndex, build
+from repro_torch.index.store import DenseStore
 from repro_torch.kernels.label_query import (KERNEL, label_query,
-                                             label_query_ref, query_table)
+                                             label_query_ref,
+                                             label_query_rows, query_table)
+from repro_torch.kernels.label_query.label_query import (MAX_WARPS,
+                                                         SHORT_L,
+                                                         launch_geometry,
+                                                         lane_query)
 
 torch.set_num_threads(1)
 
@@ -139,3 +162,142 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         label_query(x, x.float(), x, x.float())
 
+
+
+@pytest.mark.parametrize("L", [1, 8, 32, 288])
+def test_plain_query_table_equals_reference_with_negative_ids(L):
+    """The widths around the kernel's short/long split; ids in [-n, n)
+    wrap in both packages; u == v pairs included."""
+    rng = np.random.default_rng(100 + L)
+    n, Q = 37, 96
+    h, d, c = random_table(rng, n, L, hubs=max(4, L // 3))
+    u = rng.integers(-n, n, Q).astype(np.int64)
+    v = rng.integers(-n, n, Q).astype(np.int64)
+    v[::6] = u[::6]
+    t = interop.label_table(h, d, c, "cpu")
+    KERNEL.launches = 0
+    pd, ph = query_table(t, torch.as_tensor(u), torch.as_tensor(v))
+    assert KERNEL.launches == 0
+    rt = ref_labels.LabelTable(jnp.asarray(h), jnp.asarray(d),
+                               jnp.asarray(c))
+    rd, rh = ref_labels.query_pairs(rt, jnp.asarray(u), jnp.asarray(v))
+    assert np.array_equal(pd.numpy(), np.asarray(rd))
+    assert np.array_equal(ph.numpy(), np.asarray(rh))
+    assert (u < 0).any() and (v < 0).any()
+    # u == v over a non-empty row always meets its own hubs
+    same = (u == v) & (c[u] > 0)
+    assert np.isfinite(pd.numpy()[same]).all()
+
+
+def assert_padding_contract(hubs, dist, count):
+    hubs, dist, count = (np.asarray(x) for x in (hubs, dist, count))
+    past = np.arange(hubs.shape[1])[None, :] >= count[:, None]
+    assert (hubs[past] == -1).all() and np.isinf(dist[past]).all()
+    assert ((count >= 0) & (count <= hubs.shape[1])).all()
+
+
+@pytest.fixture(scope="module")
+def reference_index():
+    g = rg.grid_road(6, 7, seed=4)
+    rank = betweenness_ranking(g, samples=6)
+    return ref_build(g, rank, RefPlan(algo="plant", batch=8)), g, rank
+
+
+@pytest.mark.parametrize("source", ["port-build", "reference-artifact",
+                                    "interop"])
+def test_tables_keep_the_padding_contract(source, reference_index,
+                                          tmp_path):
+    ref, g, rank = reference_index
+    if source == "port-build":
+        t = build(interop.graph(g), rank, BuildPlan(algo="plant", batch=8),
+                  device="cpu").table
+    elif source == "reference-artifact":
+        d = ref.save(str(tmp_path / "ref"))
+        t = CHLIndex.load(d, rank=rank, device="cpu").table
+    else:
+        t = interop.label_table(*(np.array(x) for x in ref.table), "cpu")
+    assert_padding_contract(*(x.numpy() for x in t))
+    assert_padding_contract(*ref.table)
+    for a, b in zip(t, ref.table):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    labels.check_padding(t)
+    assert int(t.count.max()) < t.cap    # some padding to check
+
+
+@pytest.mark.parametrize("fault", ["hub", "dist", "count-high",
+                                   "count-low"])
+def test_dense_store_refuses_broken_padding(fault):
+    rng = np.random.default_rng(5)
+    h, d, c = random_table(rng, 20, 6)
+    c[3] = 4
+    if fault == "hub":
+        h[3, 5] = 7
+    elif fault == "dist":
+        d[3, 4] = 2.0
+    elif fault == "count-high":
+        c[3] = 7
+    else:
+        c[3] = -1
+    t = interop.label_table(h, d, c, "cpu")
+    with pytest.raises(ValueError, match="padding contract"):
+        DenseStore(t)
+    with pytest.raises(ValueError, match="padding contract"):
+        labels.check_padding(t)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("L,g", [(1, 4), (3, 4), (4, 4), (5, 8), (8, 8),
+                                 (9, 16), (31, 32), (32, 32), (33, 32),
+                                 (288, 32), (700, 32)])
+@pytest.mark.parametrize("Q", [1, 45, 1000, 65_537])
+def test_launch_geometry_groups(L, g, Q):
+    """Lanes a query (g), warps a block and blocks at the widths around
+    each group size, the short/long split at L = 32 and the parity
+    widths; Q not a multiple of the queries a block serves."""
+    gg, warps, threads, blocks = launch_geometry(Q, L, H100_SMS)
+    assert gg == g and threads == 32 * warps
+    per_block = warps * (32 // g)
+    assert blocks == -(-Q // per_block)
+    # a block of MAX_WARPS unless that leaves SMs without a block
+    if warps < MAX_WARPS:
+        assert -(-Q // (2 * per_block)) < H100_SMS
+
+
+@pytest.mark.parametrize("Q,L,sms", [(1, 8, 132), (45, 3, 132),
+                                     (1000, 8, 132), (45, 33, 132),
+                                     (77, 9, 1), (130, 1, 1),
+                                     (9, 700, 1)])
+def test_each_query_served_by_one_group(Q, L, sms):
+    """Every query is served by exactly one group of g lanes whose slots
+    are 0..g-1 (g >= L on the short path, so every u-slot has a lane);
+    lanes past Q serve nothing."""
+    g, warps, threads, blocks = launch_geometry(Q, L, sms)
+    seen = {}
+    for blk in range(blocks):
+        for t in range(threads):
+            q, k = lane_query(Q, g, warps, blk, t)
+            if q is not None:
+                seen.setdefault(q, []).append((blk, t // 32, k))
+    assert sorted(seen) == list(range(Q))
+    for q, lanes in seen.items():
+        assert sorted(k for _, _, k in lanes) == list(range(g))
+        assert len({(b, w) for b, w, _ in lanes}) == 1   # one warp
+    assert L > 32 or g >= L
+
+
+def test_table_kernel_refuses_cpu_tensors():
+    t = labels.empty(4, 3, "cpu")
+    ids = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        label_query_rows(t.hubs, t.dist, t.count, ids, ids)
+
+
+def test_geometry_constants_match_kernel_source():
+    """The wrapper's warps a block and short/long split are the
+    kernel's: ``kMaxWarps`` and its ``L > 32`` branch."""
+    src = Path(KERNEL.source).read_text()
+    assert int(re.search(r"constexpr int kMaxWarps = (\d+);",
+                         src).group(1)) == MAX_WARPS
+    assert f"if (L > {SHORT_L})" in src
