@@ -28,6 +28,14 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    random_connected(786,432, 786,432 extra edges) at the road batch of
    4, whose two source planes just fit half the L2, each equal to the
    plain sweep;
+3b. shared-memory exactness: on phase 3's graph and ranking, a full
+   ``build`` of each of pll-ref (the host PLL oracle replayed through
+   the engine), gll (alpha = 4), lcc and parapll at batch 16: gll, lcc
+   and pll-ref each equal phase 3's PLaNT table (``torch.equal`` on
+   hubs, dist and count), pll-ref also the host ``pll_undirected``;
+   parapll's 4096 ``query_with_hub`` answers equal scipy's Dijkstra,
+   with at least the CHL's labels; the gll index goes save -> load ->
+   serve(qlsn) -> flush, equal to ``query``;
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card;
@@ -39,6 +47,13 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    served answers against the plain query, and one more flush is split
    into the submit's per-ticket host work, the answer fn (host wall and
    device time) and the flush's draining;
+5b. GLL road superstep: ``GLLPolicy`` (alpha = 4) through
+   ``engine.run`` on phase 5's graph, batch, cap and 8 roots (the
+   schedule cut to them), whose table must equal phase 5's PLaNT table;
+   then a profiler window over its second batch and the flush, split
+   into the relaxation kernel, the sweep loop's mask/frontier ops, the
+   distance-query cover (``hub_distance_map`` + ``cover_distance``)
+   and ``clean_superstep``;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
@@ -49,8 +64,9 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    sweep the relaxation kernel, the loop's own tensor ops and the
    idle time.
 
-Launch counts are set to 0 just before each of phases 3-6 and read
-just after it; a phase fails if a kernel of its path was not launched.
+Launch counts are set to 0 just before each of phases 3-6 (and each
+build of 3b) and read just after it; a phase fails if a kernel of its
+path was not launched.
 Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
 state of the exactness graph (B = 16) and on the two mid-size states,
@@ -99,6 +115,10 @@ PEAK_OPS_PER_S = 67e12
 
 ROAD_ROWS = ROAD_COLS = 4096      # repro/configs/chl_road.py: n = 16,777,216
 ROAD_TREES, ROAD_BATCH, ROAD_CAP = 8, 4, 8
+# the paper's shared-memory builds on the exactness graph (3b), and
+# BuildPlan's default GLL cleaning threshold, alpha * n labels
+SHARED_ALGOS = ("pll-ref", "gll", "lcc", "parapll")
+GLL_ALPHA = 4.0
 # repro/configs/chl_scalefree.py's n, batch, trees_per_node and cap on
 # the repo's random graph (its ELL width 64 needs hub splitting)
 RANDOM_N = RANDOM_EXTRA = 4_194_304
@@ -591,7 +611,86 @@ def phase_exactness(dev, kernels) -> dict:
         f"{idx.total_labels} labels (ALS {idx.als:.2f}, cap "
         f"{idx.report.cap}); 4096 query_with_hub == scipy Dijkstra; "
         f"save->load->serve(qlsn)->flush == query; launches {counts}")
-    return {"launches": counts, "graph": (g, rank), "table": idx.table}
+    return {"launches": counts, "graph": (g, rank), "table": idx.table,
+            "wall": wall, "queries": (u, v, want)}
+
+
+def same_table(a, b) -> bool:
+    """``torch.equal`` on hubs, dist and count."""
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_shared_memory(dev, kernels, exact) -> dict:
+    """The paper's shared-memory builds on the exactness graph, each a
+    full ``build`` on the card held against phase 3's PLaNT table (gll,
+    lcc, pll-ref) or Dijkstra (parapll, which is not minimal)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import labels as lbl
+    from repro_torch.core.pll import pll_undirected
+    from repro_torch.index import BuildPlan, CHLIndex, build
+    g, rank = exact["graph"]
+    plant = exact["table"]
+    u, v, want = exact["queries"]
+    launches = {k.name: 0 for k in kernels}
+    walls = {}
+    for algo in SHARED_ALGOS:
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = build(g, rank, BuildPlan(algo=algo, batch=EXACT_BATCH),
+                    device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = idx.report
+        if algo == "parapll":
+            d, hub = idx.query_with_hub(u, v)
+            require(np.array_equal(d, want), "parapll: query != Dijkstra")
+            require(bool((hub >= 0).all()), "parapll: every pair has a hub")
+            require(idx.total_labels >= lbl.total_labels(plant),
+                    "parapll: fewer labels than the CHL")
+            check = (f"4096 query_with_hub == scipy Dijkstra; "
+                     f"{idx.total_labels / lbl.total_labels(plant):.3f}x "
+                     "the CHL's labels")
+        else:
+            require(same_table(idx.table, plant),
+                    f"{algo}: table != phase 3's PLaNT table")
+            check = "table == PLaNT's (torch.equal)"
+        if algo == "pll-ref":
+            t1 = time.perf_counter()
+            require(lbl.to_numpy_sets(idx.table) == pll_undirected(g, rank),
+                    "pll-ref: table != host pll_undirected")
+            check += (f"; == host pll_undirected "
+                      f"({time.perf_counter() - t1:.1f} s)")
+        if algo == "gll":
+            d = idx.query(u, v)
+            scratch = ROOT / "build"            # git-ignored, in the checkout
+            scratch.mkdir(exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+                path = idx.save(os.path.join(tmp, "index"))
+                idx2 = CHLIndex.load(path, rank=rank, device=dev)
+                srv = idx2.serve(mode="qlsn", batch_size=1024)
+                srv.submit(u, v)
+                out = srv.flush()
+            require(np.array_equal(out, d), "gll: served != query")
+            require(np.array_equal(d, want), "gll: query != Dijkstra")
+            check += "; save->load->serve(qlsn)->flush == query == Dijkstra"
+        path = () if algo == "pll-ref" else ("ell_relax",)
+        counts = path_launches(kernels, path, algo)
+        for name, c in counts.items():
+            launches[name] += c
+        walls[algo] = wall
+        regrows = [e.to_dict() for e in rep.overflow_events]
+        log(f"shared-memory {algo} n={g.n} batch {EXACT_BATCH}: build "
+            f"{wall:.3f} s (PLaNT {exact['wall']:.3f} s), "
+            f"{len(rep.supersteps)} supersteps, cleaned {rep.cleaned}, "
+            f"constructed {rep.constructed}, {idx.total_labels} labels "
+            f"(ALS {idx.als:.2f}, cap {rep.cap}, overflow events "
+            f"{regrows}); {check}; launches {counts}")
+    require(launches["label_query"] > 0,
+            "shared-memory: the label query was not launched")
+    return {"launches": launches, "walls": walls}
 
 
 def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
@@ -678,7 +777,7 @@ def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
     log(f"{what} serve: {SERVE_Q} served answers == plain query_pairs")
     serve_split(idx, u, v, what)
     return {"launches": launches, "roots": roots, "table": table,
-            "u": u, "v": v}
+            "u": u, "v": v, "wall": wall}
 
 
 def serve_split(idx, u, v, what) -> None:
@@ -717,6 +816,143 @@ def serve_split(idx, u, v, what) -> None:
         f"{host * 1e3:.3f} ms of host wall ({host / (t2 - t0) * 100:.2f} "
         f"%; its stream span {stream:.4f} ms by CUDA events), the "
         f"flush's draining {t2 - t1:.4f} s")
+
+
+def gll_road_policy(dev, g, rank, roots):
+    """GLLPolicy at the road configuration with its schedule cut to
+    ``roots`` (the reference's policy takes no root order; a rank-order
+    prefix labels exactly what PLaNT does with those roots)."""
+    from repro_torch.engine import BatchSchedule, GLLPolicy
+    policy = GLLPolicy(g, rank, batch=ROAD_BATCH, cap=ROAD_CAP, device=dev,
+                       alpha=GLL_ALPHA)
+    policy.schedule = lambda: BatchSchedule(roots, ROAD_BATCH)
+    return policy
+
+
+def phase_gll_road(dev, kernels, g, rank, road) -> dict:
+    """One GLL superstep on the road state through ``engine.run``, held
+    against phase 5's PLaNT table, then its time split."""
+    import torch
+    from repro_torch.core import labels as lbl
+    from repro_torch.engine import DenseSink, run
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(gll_road_policy(dev, g, rank, road["roots"]),
+              DenseSink(g.n, ROAD_CAP, dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches(kernels, ("ell_relax_windowed",), "gll road")
+    table = res.sink.table()
+    require(same_table(table, road["table"]),
+            "gll road: table != phase 5's PLaNT table")
+    c = res.counters
+    log(f"gll road superstep: {len(res.records)} supersteps of "
+        f"{[r.trees for r in res.records]} trees, {ROAD_TREES} roots in "
+        f"batches of {ROAD_BATCH}, alpha {GLL_ALPHA}: wall {wall:.2f} s "
+        f"(phase 5's PLaNT superstep {road['wall']:.2f} s on the same "
+        f"roots; expected about that or less), constructed "
+        f"{c['constructed']}, cleaned {c['cleaned']}, "
+        f"{lbl.total_labels(table)} labels; table == phase 5's PLaNT "
+        f"table (torch.equal); launches {launches}")
+    del res, table
+    split = gll_road_split(dev, g, rank, road["roots"])
+    return {"launches": launches, "wall": wall, "split": split}
+
+
+def gll_road_split(dev, g, rank, roots) -> dict:
+    """A fresh GLL run on the road roots: its first batch unprofiled,
+    then a ``torch.profiler`` window (CUDA activity) over the second
+    batch and the flush, with CUDA events around the same span. The
+    window gives the device's busy time and the relaxation kernel's;
+    the distance-query cover (both tables' ``hub_distance_map`` +
+    ``cover_distance``, on the state the second batch starts from)
+    and ``clean_superstep`` (on the flush's emissions, at its shapes:
+    its work does not depend on the values) are timed apart with CUDA
+    events; the sweep loop's mask/frontier ops are the rest of the busy
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import labels as lbl
+    from repro_torch.core.gll import clean_superstep
+    from repro_torch.engine import DenseSink
+    from repro_torch.kernels.ell_relax import WINDOWED_KERNEL
+    policy = gll_road_policy(dev, g, rank, roots)
+    sink = DenseSink(g.n, ROAD_CAP, dev)
+    steps = list(policy.schedule().steps())
+    require(len(steps) == 2, "gll road split: want two batches")
+    require(policy.step(steps[0], sink) is None,
+            "gll road split: the first batch flushed")
+    roots2 = torch.as_tensor(steps[1].roots, device=dev)
+
+    def cover():
+        return torch.minimum(
+            lbl.cover_distance(sink.table(),
+                               lbl.hub_distance_map(sink.table(), roots2)),
+            lbl.cover_distance(policy.loc,
+                               lbl.hub_distance_map(policy.loc, roots2)))
+    cover_ms = time_ms(cover, reps=3, warmup=1)
+    pending = []
+    flush = policy._flush
+
+    def keep_pending(sink_):
+        pending.extend(policy.pending)
+        return flush(sink_)
+    policy._flush = keep_pending
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    before = WINDOWED_KERNEL.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        out = policy.step(steps[1], sink) or policy.epilogue(sink)
+        ev[1].record()
+        torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    sweeps = WINDOWED_KERNEL.launches - before      # one launch a sweep
+    require(out is not None and out.record.trees == ROAD_TREES,
+            "gll road split: the window holds no flush of all roots")
+    stream_ms = ev[0].elapsed_time(ev[1])
+    roots_t = torch.cat([b.roots for b in pending])
+    emit = torch.cat([b.emit for b in pending])
+    dist = torch.cat([b.dist for b in pending])
+    table = sink.table()
+    clean_ms = time_ms(lambda: clean_superstep(
+        table, table, policy.arrays.rank, roots_t, emit, dist),
+        reps=3, warmup=1)
+    t1 = time.perf_counter()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    parse = time.perf_counter() - t1
+    split = {"stream_ms": stream_ms, "host_s": host, "cover_ms": cover_ms,
+             "clean_ms": clean_ms, "sweeps": sweeps}
+    if not kern:
+        log(f"gll road split: the profile holds no device time; stream "
+            f"span {stream_ms:.1f} ms by CUDA events, cover {cover_ms:.3f}"
+            f" ms, clean {clean_ms:.3f} ms; relaxation kernel and sweep loop "
+            "ops not measured")
+        return split
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3
+    busy = covered(kern) / 1e3
+    relax = covered([e for e in kern if "relax" in e.name]) / 1e3
+    loop_ops = busy - relax - cover_ms - clean_ms
+    split.update(span_ms=span, busy_ms=busy, relax_ms=relax,
+                 loop_ops_ms=loop_ops, events=len(kern))
+    per = max(1, sweeps)
+    log(f"gll road split (second batch, {sweeps} sweeps, + flush; "
+        f"{len(kern)} device events, profile parsed in {parse:.1f} s): "
+        f"host wall {host:.2f} s, stream span {stream_ms:.1f} ms (CUDA "
+        f"events), device span {span:.1f} ms, busy {busy:.1f} ms "
+        f"({busy / span * 100:.1f} %): relaxation kernel {relax:.1f} ms "
+        f"({relax / busy * 100:.1f} % of busy, {relax / per:.4f} ms a "
+        f"sweep), the sweep loop's mask/frontier ops {loop_ops:.1f} ms "
+        f"({loop_ops / busy * 100:.1f} %, {loop_ops / per:.4f} ms a sweep), "
+        f"hub_distance_map + cover_distance {cover_ms:.3f} ms "
+        f"({cover_ms / busy * 100:.3f} %), clean_superstep "
+        f"{clean_ms:.3f} ms ({clean_ms / busy * 100:.3f} %), idle "
+        f"{span - busy:.1f} ms")
+    return split
 
 
 def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
@@ -1069,6 +1305,7 @@ def main() -> int:
 
     exact = phase_exactness(dev, kernels)
     add(exact["launches"])
+    add(phase_shared_memory(dev, kernels, exact)["launches"])
     g, rank = exact["graph"]
     lq = {"exactness": time_query_table(
         dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
@@ -1111,6 +1348,8 @@ def main() -> int:
     road_relax = time_relax(dev, "road", g, rank, road["roots"],
                             ROAD_BATCH, sweeps=256)
     trace_sweeps(dev, "road", g, rank, road["roots"], ROAD_BATCH)
+    torch.cuda.empty_cache()
+    add(phase_gll_road(dev, kernels, g, rank, road)["launches"])
     del g, rank, road
     torch.cuda.empty_cache()
 

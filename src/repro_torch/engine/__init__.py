@@ -1,7 +1,9 @@
 """The superstep engine: scheduler, typed records, sink, policies and
-the run loop (single host, PLaNT)."""
+the run loop (single host: PLaNT, GLL/LCC/paraPLL and the PLL
+reference)."""
 
-from repro_torch.engine.policies import (Policy, PlantPolicy, StepOutcome,
+from repro_torch.engine.policies import (GLLPolicy, PLLRefPolicy, Policy,
+                                         PlantPolicy, StepOutcome,
                                          build_fingerprint)
 from repro_torch.engine.records import (STAT_SLOTS, SuperstepRecord,
                                         fetch_stat_rows, make_record,
@@ -12,8 +14,9 @@ from repro_torch.engine.scheduler import (BatchSchedule, Step, rank_order,
                                           root_batches)
 from repro_torch.engine.sink import DenseSink
 
-__all__ = ["BatchSchedule", "DenseSink", "EngineResult", "PORTED_ALGOS",
-           "PlantPolicy", "Policy", "STAT_SLOTS", "Step", "StepOutcome",
-           "SuperstepRecord", "build_fingerprint", "fetch_stat_rows",
-           "make_record", "pack_stats", "rank_order", "record_from_row",
-           "root_batches", "run", "run_build"]
+__all__ = ["BatchSchedule", "DenseSink", "EngineResult", "GLLPolicy",
+           "PLLRefPolicy", "PORTED_ALGOS", "PlantPolicy", "Policy",
+           "STAT_SLOTS", "Step", "StepOutcome", "SuperstepRecord",
+           "build_fingerprint", "fetch_stat_rows", "make_record",
+           "pack_stats", "rank_order", "record_from_row", "root_batches",
+           "run", "run_build"]

@@ -1,8 +1,9 @@
 """Emission sink — where a policy's committed labels land.
 
 :class:`DenseSink` holds one padded ``LabelTable`` on the build's
-device. Overflow accumulates on the device and is read once, at the
-end of the run, so the superstep loop never waits on it.
+device. Overflow accumulates on the device and is read at commit points
+(every commit for an ``eager_stats`` policy, else once at the end of
+the run), so the dispatch never waits on it mid-superstep.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ class DenseSink:
                dist: torch.Tensor) -> None:
         self._table, ovf = lbl.insert_batch(self._table, roots, emit, dist)
         self._ovf |= ovf
+
+    def note_overflow(self, flag: torch.Tensor) -> None:
+        """Fold in an overflow verdict from outside the sink (GLL's
+        local table)."""
+        self._ovf |= flag
 
     def table(self) -> LabelTable:
         return self._table

@@ -76,6 +76,25 @@ def _build_ell(n: int, heads: np.ndarray, tails: np.ndarray,
     return ell_ids, ell_w
 
 
+#: bits of a weight in the packed arc sort key of `_arc_order`
+_W_BITS = 12
+
+
+def _arc_order(key: np.ndarray, w: np.ndarray, n: int) -> np.ndarray:
+    """The permutation of ``np.lexsort((w, key))``: arcs by key, then
+    weight, ties in input order. When every weight is an integer in
+    ``[0, 2^12)`` and ``n^2 < 2^52``, one stable argsort of the packed
+    ``(key << 12) | w`` gives it several times faster; any other input
+    keeps the lexsort."""
+    if (len(w) and n * n < 2 ** 52 and float(w.min()) >= 0
+            and float(w.max()) < 2 ** _W_BITS
+            and bool((w == np.floor(w)).all())):
+        packed = (key.astype(np.uint64) << np.uint64(_W_BITS)) \
+            | w.astype(np.uint64)
+        return np.argsort(packed, kind="stable")
+    return np.lexsort((w, key))
+
+
 def from_edges(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                directed: bool = False) -> Graph:
     """Build a Graph from an arc list.
@@ -92,7 +111,7 @@ def from_edges(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     keep = src != dst
     src, dst, w = src[keep], dst[keep], w[keep]
     key = src.astype(np.int64) * n + dst.astype(np.int64)
-    order = np.lexsort((w, key))
+    order = _arc_order(key, w, n)
     key, src, dst, w = key[order], src[order], dst[order], w[order]
     first = np.ones(len(key), dtype=bool)
     first[1:] = key[1:] != key[:-1]

@@ -47,3 +47,9 @@ def betweenness_ranking(g: Graph, samples: int = 16,
         score += np.where(np.isfinite(dist), acc, 0.0)
     order = np.lexsort((np.arange(g.n), -score))
     return _order_to_rank(order.astype(np.int64), g.n)
+
+
+def random_ranking(n: int, seed: int = 0) -> np.ndarray:
+    """A uniformly random hierarchy (a permutation of ``[0, n)``)."""
+    rng = np.random.default_rng(seed)
+    return rng.permutation(n).astype(np.int32)

@@ -130,6 +130,57 @@ class CHLIndex:
                             breaker_threshold=breaker_threshold,
                             breaker_reset_s=breaker_reset_s)
 
+    # ------------------------------------------------------ validate
+
+    def validate_against(self, oracle) -> bool:
+        """Check this index against ground truth; raises AssertionError
+        on a mismatch. ``oracle`` is either a ``Graph`` (every pair's
+        distance against Dijkstra: the cover property) or PLL label
+        sets (exact CHL label-set equality)."""
+        from repro_torch.core import labels as lbl
+        from repro_torch.core import validate as val
+        if hasattr(oracle, "indptr"):            # a Graph: cover check
+            from repro_torch.sssp.oracle import all_pairs
+            D = all_pairs(oracle)
+            n = oracle.n
+            uu, vv = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+            uu, vv = uu.reshape(-1), vv.reshape(-1)
+            got = np.empty(n * n, np.float32)
+            step = 8192                  # bound the plain [Q, L, L] cube
+            for s in range(0, n * n, step):
+                got[s:s + step] = self.query(uu[s:s + step], vv[s:s + step])
+            got = got.reshape(n, n)
+            want = D.astype(np.float32)
+            ok = np.isfinite(want)
+            if not np.array_equal(got[ok], want[ok]):
+                raise AssertionError("distances differ")
+            if np.isfinite(got[~ok]).any():
+                raise AssertionError(
+                    "reports finite distance for disconnected pair")
+            return True
+        val.check_equal(lbl.to_numpy_sets(self.table), oracle)
+        return True
+
+    # -------------------------------------------------------- memory
+
+    def memory_report(self, q: Optional[int] = None) -> dict:
+        """Per-mode cluster label storage (Table 4) for ``q`` nodes
+        (default: the build's) plus the store's resident
+        ``label_bytes``, bytes per label and the ratio to dense f32
+        (8 B a label)."""
+        from repro_torch.core.query import mode_memory_totals
+        q = q or self.report.q
+        base = self.store.label_bytes()
+        total = self.store.total_labels
+        out = mode_memory_totals(self.n, base, q)
+        out["store"] = self.store.kind
+        out["shards"] = self.store.num_shards
+        out["label_bytes"] = base
+        out["dense_f32_bytes"] = total * 8
+        out["bytes_per_label"] = base / max(1, total)
+        out["compression_ratio"] = (total * 8) / max(1, base)
+        return out
+
     # ---------------------------------------------------------- disk
 
     def save(self, directory: str) -> str:
@@ -200,9 +251,9 @@ class CHLIndex:
                 or int(info.get("shards", 1)) != 1:
             raise NotImplementedError(
                 f"{directory}: only undirected dense version-{VERSION} "
-                "artifacts load in this slice (v1/v2, directed, sharded "
-                "and compressed artifacts: ROADMAP Queue 1, items 6, 8 "
-                "and 9)")
+                "artifacts load in this port (v1/v2 artifacts: ROADMAP "
+                "Queue 1, item 6; directed: item 8; sharded and "
+                "compressed: item 9)")
         plan = BuildPlan.from_dict(manifest["plan"])
         report = BuildReport.from_dict(manifest["report"])
         cls._verify_checksums(directory, manifest)

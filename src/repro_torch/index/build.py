@@ -7,9 +7,9 @@ retries with the cap grown geometrically (``plan.cap_growth``, clamped
 to n, at most ``plan.max_cap_retries`` times); every regrow is recorded
 in ``report.overflow_events``.
 
-This slice builds ``algo="plant"`` into ``store="dense"``; other
-algorithms and stores raise ``NotImplementedError`` naming their
-ROADMAP queue.
+The port builds ``plant``, ``pll-ref``, ``gll``, ``lcc`` and
+``parapll`` into ``store="dense"``; other algorithms and stores raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelOverflowError
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import PORTED_ALGOS, run_build
+from repro_torch.engine.runner import unported_algo
 from repro_torch.index.artifact import CHLIndex
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport, OverflowEvent
@@ -37,19 +38,19 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     dev = resolve_device(device)
     plan = plan or BuildPlan()
     if plan.algo not in PORTED_ALGOS:
-        raise NotImplementedError(
-            f"algo={plan.algo!r} is not ported yet (ROADMAP Queue 1, "
-            "items 8 and 11); this slice builds algo='plant'")
+        raise unported_algo(plan.algo)
     if plan.store != "dense":
         raise NotImplementedError(
             f"store={plan.store!r} is not ported yet (ROADMAP Queue 1, "
-            "item 9); this slice builds store='dense'")
+            "item 9); this port builds store='dense'")
     if g.directed:
         raise ValueError(f"algo={plan.algo!r} needs an undirected graph")
     n = g.n
     cap = min(plan.cap or lbl.default_cap(n), n)
     notes = []
-    windows = layout_plan(n, dev, bb=plan.batch)
+    # the host oracle (pll-ref) runs no sweeps
+    windows = (layout_plan(n, dev, bb=plan.batch)
+               if plan.algo != "pll-ref" else None)
     if windows is not None and windows.num_windows > 1:
         # surface the windowing decision in the report
         notes.append(windowed_note(n, plan.batch, windows))
@@ -59,7 +60,8 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     while True:
         try:
             res = run_build(g, rank, algo=plan.algo, batch=plan.batch,
-                            cap=cap, device=dev, verbose=verbose)
+                            cap=cap, alpha=plan.alpha, device=dev,
+                            verbose=verbose)
             break
         except LabelOverflowError as e:
             if e.what != "label table":
@@ -85,5 +87,7 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     report = BuildReport(
         algo=plan.algo, wall_s=wall, total_labels=total,
         als=total / max(1, n), cap=cap, supersteps=list(res.records),
-        overflow_events=overflow_events, notes=notes)
+        overflow_events=overflow_events, notes=notes,
+        cleaned=int(res.counters.get("cleaned", 0)),
+        constructed=int(res.counters.get("constructed", 0)))
     return CHLIndex(store, plan=plan, report=report, rank=rank)

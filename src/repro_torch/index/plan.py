@@ -89,6 +89,17 @@ class BuildPlan:
                 "codec / quant_exact apply only to store='compressed'")
 
     @classmethod
+    def from_args(cls, args, **overrides) -> "BuildPlan":
+        """Plan from an argparse ``Namespace``: every field the
+        namespace carries (and is not None) is read, the rest keep
+        their defaults; ``overrides`` win."""
+        kw = {f.name: getattr(args, f.name)
+              for f in dataclasses.fields(cls)
+              if getattr(args, f.name, None) is not None}
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
     def from_dict(cls, d: dict) -> "BuildPlan":
         fields = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - fields

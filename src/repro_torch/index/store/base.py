@@ -45,6 +45,10 @@ class LabelStore(Protocol):
     def to_table(self):
         ...
 
+    def label_bytes(self) -> int:
+        """Bytes to store the (hub, dist) pairs actually present."""
+        ...
+
     def shard_arrays(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
         """Yield ``(k, {"hubs", "dist", "count"})`` per shard as host
         arrays — the save path."""

@@ -63,6 +63,10 @@ class DenseStore:
     def to_table(self) -> LabelTable:
         return self._table
 
+    def label_bytes(self) -> int:
+        """Bytes of the (hub, dist) pairs present, 8 a label."""
+        return self.total_labels * 8
+
     def shard_arrays(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
         t = self._table
         yield 0, {"hubs": t.hubs.cpu().numpy(),

@@ -33,3 +33,34 @@ def dijkstra_tree(g: Graph, root: int) -> Tuple[np.ndarray, np.ndarray]:
                 parent[u] = v
                 heapq.heappush(pq, (nd, u))
     return dist, parent
+
+
+def dijkstra_maxrank(g: Graph, root: int,
+                     rank: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Distances + ``mrank[v]`` = max rank over the union of all
+    shortest ``root -> v`` paths (endpoints inclusive): the scalar
+    oracle of PLaNT's criterion, label ``(root, v)`` is canonical iff
+    ``mrank[v] == rank[root]``. Undirected graphs (a directed one needs
+    ``Graph.reverse``, ROADMAP Queue 1 item 2)."""
+    if g.directed:
+        raise NotImplementedError(
+            "dijkstra_maxrank on a directed graph needs Graph.reverse "
+            "(ROADMAP Queue 1, item 2)")
+    dist = dijkstra(g, root)
+    mrank = np.full(g.n, -1, dtype=np.int64)
+    mrank[root] = rank[root]
+    for v in np.argsort(dist, kind="stable"):
+        if not np.isfinite(dist[v]) or v == root:
+            continue
+        best = -1
+        ids, w = g.out_edges(v)          # undirected: the in-edges too
+        for u, wt in zip(ids.tolist(), w.tolist()):
+            if np.isfinite(dist[u]) and dist[u] + wt == dist[v]:
+                best = max(best, mrank[u])
+        mrank[v] = max(best, int(rank[v]))
+    return dist, mrank
+
+
+def all_pairs(g: Graph) -> np.ndarray:
+    """All-pairs distances (test scale only)."""
+    return np.stack([dijkstra(g, v) for v in range(g.n)])

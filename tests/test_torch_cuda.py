@@ -14,6 +14,9 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   the query kernel, not the windowed one; with an L2 that forces
   windows it launches only the windowed sweep and still equals the CPU
   build;
+- GLL and LCC builds on the card (the relaxation kernels under the
+  distance-query cover mask, dense and windowed) equal the CPU builds,
+  and the chunked cover helpers equal one unchunked call;
 - dense-block PLaNT on the card equals the ELL engine;
 - the dense sweep at shapes that take each tree-group size G of its
   launch geometry, with all-padding rows, rows past the shared-memory
@@ -226,6 +229,66 @@ def test_windowed_build_on_card_equals_cpu_build(cuda_device, monkeypatch):
                for x in card.report.notes)
     for a, b in zip(card.table, cpu.table):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("algo,windows", [("gll", False), ("lcc", False),
+                                          ("gll", True)])
+def test_shared_memory_build_on_card_equals_cpu_build(cuda_device, algo,
+                                                      windows, monkeypatch):
+    """GLL and LCC on the card (gated sweeps under the cover mask,
+    stride 4; with ``windows`` an L2 that forces 3 source windows)
+    equal the CPU build (plain, ungated) array for array."""
+    g = random_connected(300, 260, seed=7, max_w=3)
+    rank = degree_ranking(g)
+    plan = BuildPlan(algo=algo, batch=8, alpha=2.0)
+    cpu = build(g, rank, plan, device="cpu")
+    if windows:
+        monkeypatch.setattr(port_layout, "l2_bytes",
+                            lambda device: 2 * 8 * 8 * 128)
+    for k in (ELL_RELAX, WINDOWED_KERNEL, LABEL_QUERY):
+        k.launches = 0
+    card = build(g, rank, plan, device=cuda_device)
+    for a, b in zip(card.table, cpu.table):
+        assert torch.equal(a.cpu(), b)
+    c, p = card.report.to_dict(), cpu.report.to_dict()
+    for r in (c, p):
+        r.pop("wall_s"), r.pop("notes")
+    assert c == p and card.report.cleaned > 0
+    sweeps = WINDOWED_KERNEL if windows else ELL_RELAX
+    idle = ELL_RELAX if windows else WINDOWED_KERNEL
+    assert sweeps.launches > 0 and idle.launches == 0
+    u = np.arange(g.n)
+    assert np.array_equal(card.query(u, u[::-1]), cpu.query(u, u[::-1]))
+    assert LABEL_QUERY.launches > 0
+
+
+def test_cover_best_rank_in_chunks_on_card(cuda_device, monkeypatch):
+    """`cover_best_rank` and `cover_distance` at a budget of 3 rows a
+    chunk equal one unchunked call on the card."""
+    rng = np.random.default_rng(3)
+    n, L, B = 500, 24, 11
+    count = rng.integers(0, L + 1, n).astype(np.int32)
+    slot = np.arange(L)[None, :] < count[:, None]
+    h = np.where(slot, rng.integers(0, n, (n, L)), -1).astype(np.int32)
+    d = np.where(slot, rng.integers(0, 9, (n, L)), np.inf).astype(np.float32)
+    t = interop.label_table(h, d, count, cuda_device)
+    roots = torch.as_tensor(rng.integers(0, n, B), device=cuda_device)
+    rank = torch.as_tensor(rng.permutation(n).astype(np.int32),
+                           device=cuda_device)
+    delta = torch.as_tensor(rng.integers(0, 16, (B, n)).astype(np.float32),
+                            device=cuda_device)
+    hmap = labels.hub_distance_map(t, roots)
+    whole = (labels.cover_best_rank(t, hmap, rank, delta),
+             labels.cover_distance(t, hmap))
+    monkeypatch.setattr(labels, "COVER_CHUNK_BYTES", 3 * 4 * n * L)
+    chunked = (labels.cover_best_rank(t, hmap, rank, delta),
+               labels.cover_distance(t, hmap))
+    for a, b in zip(chunked, whole):
+        assert torch.equal(a, b)
+    assert (whole[0] >= 0).any() and torch.isfinite(whole[1]).any()
+    cpu = labels.LabelTable(*(x.cpu() for x in t))
+    assert torch.equal(whole[0].cpu(), labels.cover_best_rank(
+        cpu, hmap.cpu(), rank.cpu(), delta.cpu()))
 
 
 def test_dense_plant_on_card_equals_ell_engine(cuda_device):

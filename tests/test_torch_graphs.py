@@ -56,6 +56,41 @@ def test_from_edges_dedupes_and_pads_like_reference():
         assert (p.ell_src[pad] == 0).all()
 
 
+#: arc weights past the packed sort key of `from_edges` (integers in
+#: [0, 4096)): fractional, integral past the range, and ties on
+#: duplicate arcs (which the packed key takes)
+WEIGHTS = {
+    "fractional": [5.5, 3, 2.25, 1, 7, 4.5, 9, 0.75],
+    "past-4096": [5, 3, 2, 1, 7, 4, 9, 5000],
+    "dup-ties": [5, 3, 2, 1, 4, 4, 9, 1],
+}
+
+
+@pytest.mark.parametrize("weights", list(WEIGHTS))
+def test_from_edges_weights_like_reference(weights):
+    src = np.array([0, 1, 1, 2, 3, 3, 4, 4], np.int32)
+    dst = np.array([1, 0, 2, 2, 4, 4, 0, 2], np.int32)
+    w = np.array(WEIGHTS[weights], np.float32)
+    for directed in (False, True):
+        assert_same_graph(tg.from_edges(5, src, dst, w, directed=directed),
+                          rg.from_edges(5, src, dst, w, directed=directed))
+
+
+@pytest.mark.parametrize("frac", [False, True])
+def test_from_edges_many_duplicate_arcs_like_reference(frac):
+    """Thousands of arcs over 40 vertices, most of them repeated with
+    other weights: the packed sort and the lexsort keep the same one."""
+    rng = np.random.default_rng(int(frac))
+    src = rng.integers(0, 40, 5000)
+    dst = rng.integers(0, 40, 5000)
+    w = rng.integers(0, 4096, 5000).astype(np.float32)
+    if frac:
+        w = w + rng.integers(0, 4, 5000) * 0.25
+    for directed in (False, True):
+        assert_same_graph(tg.from_edges(40, src, dst, w, directed=directed),
+                          rg.from_edges(40, src, dst, w, directed=directed))
+
+
 @pytest.mark.parametrize("gen,kw", CASES[:2] + CASES[4:5])
 def test_rankings_identical(gen, kw):
     p, r = getattr(tg, gen)(**kw), getattr(rg, gen)(**kw)

@@ -143,14 +143,14 @@ def test_load_rejects_corruption_and_foreign_rank(built, tmp_path):
 def test_unported_paths_raise():
     g, rank = _case("grid")
     pg = interop.graph(g)
-    for plan in (BuildPlan(algo="gll"), BuildPlan(algo="plant",
-                                                   store="sharded")):
+    for plan in (BuildPlan(algo="dgll"), BuildPlan(algo="plant",
+                                                    store="sharded")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(pg, rank, plan, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_build(pg, rank, algo="plant", ckpt=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_build(pg, rank, algo="gll", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        run_build(pg, rank, algo="directed", device="cpu")
     idx = build(pg, rank, BuildPlan(algo="plant"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         idx.serve(mode="qfdl")
