@@ -27,7 +27,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    largest: grid_road(896, 896) (n = 802,816) and
    random_connected(786,432, 786,432 extra edges) at the road batch of
    4, whose two source planes just fit half the L2, each equal to the
-   plain sweep;
+   plain sweep; on the first, ``affected_hubs`` for a seeded batch of
+   4 mutations (the frontier's endpoint sweeps; no re-plant at this n);
 3b. shared-memory exactness: on phase 3's graph and ranking, a full
    ``build`` of each of pll-ref (the host PLL oracle replayed through
    the engine), gll (alpha = 4), lcc and parapll at batch 16: gll, lcc
@@ -36,6 +37,23 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    parapll's 4096 ``query_with_hub`` answers equal scipy's Dijkstra,
    with at least the CHL's labels; the gll index goes save -> load ->
    serve(qlsn) -> flush, equal to ``query``;
+3c. crash matrix: a child process running phase 3's PLaNT build under
+   a ``CheckpointManager`` is killed with exit 41 at ``engine.commit``
+   after CRASH_AFTER commits; the newest step it left is torn and the
+   parent resumes from the one before (warned), equal to phase 3's
+   table; a GLL build's steps past its middle flush are dropped and it
+   resumes, table and counters equal to the uninterrupted run's;
+3d. repair: ``CHLIndex.apply`` on phase 3's index, twice, with one live
+   cached ``serve`` and a ``RepairJournal``: a batch that joins tied
+   paths around slack edges (delete one, reweight another down to its
+   endpoints' distance, insert a shortcut one below a two-hop
+   distance), then a low-load batch (the delete, reweight and insert of
+   smallest non-empty shadow among seeded candidates). After each, the
+   repaired table equals a fresh card build on the mutated graph, the
+   pre-mutation service answers 4096 cached pairs equal to Dijkstra on
+   it (some moved), and the journal recovers the saved artifact as
+   post-repair; affected share and the repair and rebuild walls are
+   logged;
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card;
@@ -47,6 +65,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    served answers against the plain query, and one more flush is split
    into the submit's per-ticket host work, the answer fn (host wall and
    device time) and the flush's draining;
+5a. road resume: phase 5's superstep under a ``CheckpointManager`` in
+   the git-ignored build/, stopped by a soft crash at its second
+   ``engine.commit`` and resumed by a fresh policy and manager, equal
+   to phase 5's table; logs each step's bytes, the save (copy to the
+   host, npz write), the restore and the fingerprint hash;
 5b. GLL road superstep: ``GLLPolicy`` (alpha = 4) through
    ``engine.run`` on phase 5's graph, batch, cap and 8 roots (the
    schedule cut to them), whose table must equal phase 5's PLaNT table;
@@ -65,7 +88,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    idle time.
 
 Launch counts are set to 0 just before each of phases 3-6 (and each
-build of 3b) and read just after it; a phase fails if a kernel of its
+build of 3b, each resume of 3c, the repair of 3d, the frontier and the
+road resume) and read just after it; a phase fails if a kernel of its
 path was not launched.
 Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
@@ -612,7 +636,7 @@ def phase_exactness(dev, kernels) -> dict:
         f"{idx.report.cap}); 4096 query_with_hub == scipy Dijkstra; "
         f"save->load->serve(qlsn)->flush == query; launches {counts}")
     return {"launches": counts, "graph": (g, rank), "table": idx.table,
-            "wall": wall, "queries": (u, v, want)}
+            "index": idx, "wall": wall, "queries": (u, v, want)}
 
 
 def same_table(a, b) -> bool:
@@ -777,7 +801,7 @@ def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
     log(f"{what} serve: {SERVE_Q} served answers == plain query_pairs")
     serve_split(idx, u, v, what)
     return {"launches": launches, "roots": roots, "table": table,
-            "u": u, "v": v, "wall": wall}
+            "records": res.records, "u": u, "v": v, "wall": wall}
 
 
 def serve_split(idx, u, v, what) -> None:
@@ -954,6 +978,488 @@ def gll_road_split(dev, g, rank, roots) -> dict:
         f"{span - busy:.1f} ms")
     return split
 
+
+# ------------------------------------------- resume, faults and repair
+
+def timed_manager(directory, keep):
+    """A ``CheckpointManager`` that records, per save, the bytes of the
+    state, the copy to the host (on the caller's thread) and the npz
+    write (on the writer thread), and each restore's wall."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten
+
+    class Timed(CheckpointManager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.saves, self.writes, self.restores = [], [], []
+
+        def save(self, step, state, data_state=None, blocking=True):
+            self.wait()
+            nbytes = sum(v.numel() * v.element_size()
+                         if isinstance(v, torch.Tensor) else v.nbytes
+                         for _, v in flatten(state))
+            t0 = time.perf_counter()
+            super().save(step, state, data_state, blocking)
+            self.saves.append({"step": step, "bytes": nbytes, "at": t0,
+                               "copy_s": time.perf_counter() - t0})
+
+        def _write(self, step, host, data_state):
+            t0 = time.perf_counter()
+            super()._write(step, host, data_state)
+            self.writes.append(time.perf_counter() - t0)
+
+        def restore(self, template, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(template, step)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.restores.append(time.perf_counter() - t0)
+            return out
+
+    return Timed(str(directory), keep=keep)
+
+
+def phase_road_resume(dev, kernels, g, rank, road) -> dict:
+    """Phase 5's road superstep run under a checkpoint manager, stopped
+    by a soft crash at its second ``engine.commit``, then resumed from
+    the first commit by a fresh policy and manager: the table must equal
+    phase 5's uninterrupted one. Logs the bytes and walls of the saves
+    (copy to the host, npz write), the restore and the fingerprint."""
+    import shutil
+    import torch
+    from repro_torch.engine import DenseSink, PlantPolicy, run
+    from repro_torch.ft import Fault, FaultPlan, InjectedCrash, faults
+    ckdir = ROOT / "build" / "road_ckpt"     # git-ignored, in the checkout
+    shutil.rmtree(ckdir, ignore_errors=True)
+    roots = road["roots"]
+
+    def policy():
+        return PlantPolicy(g, rank, batch=ROAD_BATCH, device=dev,
+                           roots_order=roots)
+
+    reset(kernels)
+    p1 = policy()
+    t0 = time.perf_counter()
+    fp = p1.fingerprint                      # hashed on first read
+    hash_s = time.perf_counter() - t0
+    mgr = timed_manager(ckdir, keep=1)
+    fplan = FaultPlan({"engine.commit": [Fault("crash", after=1)]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with faults(fplan):
+            run(p1, DenseSink(g.n, ROAD_CAP, dev), ckpt=mgr)
+        raise AssertionError("road resume: the run was not stopped")
+    except InjectedCrash as e:
+        require(e.site == "engine.commit" and fplan.fired == [
+            ("engine.commit", "crash")], f"road resume: crashed at {e.site}")
+    crash_s = time.perf_counter() - t0
+    mgr.wait()
+    first = mgr.saves[0]
+    superstep_s = first["at"] - t0
+    require(mgr.all_steps() == [ROAD_BATCH], "road resume: committed steps "
+            f"{mgr.all_steps()}, want [{ROAD_BATCH}]")
+    del p1
+    torch.cuda.empty_cache()
+
+    mgr2 = timed_manager(ckdir, keep=1)
+    p2 = policy()
+    t1 = time.perf_counter()
+    require(p2.fingerprint == fp, "road resume: fingerprint differs")
+    hash2_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run(p2, DenseSink(g.n, ROAD_CAP, dev), ckpt=mgr2, resume=True)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    launches = path_launches(kernels, ("ell_relax_windowed",),
+                             "road resume")
+    require(res.resumed_from == ROAD_BATCH,
+            f"road resume: resumed from {res.resumed_from}")
+    require(same_table(res.sink.table(), road["table"]),
+            "road resume: table != phase 5's uninterrupted road table")
+    require(len(res.records) == len(road["records"]),
+            "road resume: records lost")
+    table_bytes = g.n * ROAD_CAP * 8 + g.n * 4
+    last = mgr2.saves[-1]
+    log(f"road resume n={g.n}: a soft crash at the second engine.commit "
+        f"after {crash_s:.2f} s; resumed from root cursor "
+        f"{res.resumed_from} in {resume_s:.2f} s (restore "
+        f"{mgr2.restores[0]:.3f} s, then the second batch and its save); "
+        f"table == phase 5's uninterrupted road table (torch.equal); "
+        f"launches {launches}")
+    log(f"road resume checkpoint: {first['bytes']:,} B a step "
+        f"(table {table_bytes:,} B = n x {ROAD_CAP} x (4 + 4) + n x 4, and "
+        f"the records); first superstep {superstep_s:.2f} s; save: copy "
+        f"to the host {first['copy_s']:.3f} s, npz write "
+        f"{mgr.writes[0]:.3f} s on the writer thread (resumed run's save "
+        f"{last['copy_s']:.3f} + {mgr2.writes[-1]:.3f} s); restore "
+        f"{mgr2.restores[0]:.3f} s; fingerprint of the "
+        f"{(g.ell_src.nbytes + g.ell_w.nbytes) * 2 / 1e9:.2f} GB adjacency "
+        f"(as int64 + f64) and rank: {hash_s:.2f} s, again on resume "
+        f"{hash2_s:.2f} s")
+    require(first["bytes"] >= table_bytes, "road resume: step bytes")
+    del res
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "bytes": first["bytes"],
+            "copy_s": first["copy_s"], "write_s": mgr.writes[0],
+            "restore_s": mgr2.restores[0], "hash_s": hash_s,
+            "superstep_s": superstep_s}
+
+
+#: the exactness crash matrix's child: a PLaNT build of phase 3's graph
+#: under a checkpoint manager (the rank comes from the parent)
+CRASH_CHILD = """
+import sys
+import numpy as np
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.graphs import grid_road
+from repro_torch.index import BuildPlan, build
+g = grid_road(64, 64, seed=7)
+build(g, np.load(sys.argv[1]), BuildPlan(algo="plant", batch=int(sys.argv[3])),
+      ckpt=CheckpointManager(sys.argv[2], keep=3))
+print("finished")
+"""
+#: commits the child makes before the hard crash (of 256)
+CRASH_AFTER = 128
+
+
+def phase_crash_matrix(dev, kernels, exact) -> dict:
+    """Hard and soft crashes on the exactness graph, each resumed to the
+    uninterrupted table: (a) a child process running a PLaNT build is
+    killed with exit 41 at ``engine.commit`` after CRASH_AFTER commits;
+    the newest step it left is torn, and the parent resumes from the one
+    before it; (b) a GLL build's checkpoints past its middle flush are
+    dropped and the build resumed, equal to the uninterrupted GLL table
+    and counters."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import run_build
+    from repro_torch.ft import Fault, FaultPlan, torn_write
+    from repro_torch.ft.harness import assert_child_killed, run_child
+    g, rank = exact["graph"]
+    launches = {k.name: 0 for k in kernels}
+    scratch = ROOT / "build"                 # git-ignored, in the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        np.save(os.path.join(tmp, "rank.npy"), rank)
+        ckdir = os.path.join(tmp, "plant")
+        plan = FaultPlan({"engine.commit": [Fault("crash", after=CRASH_AFTER,
+                                                  hard=True)]})
+        t0 = time.perf_counter()
+        proc = run_child(["-c", CRASH_CHILD, os.path.join(tmp, "rank.npy"),
+                          ckdir, str(EXACT_BATCH)], plan=plan,
+                         env={"PYTHONPATH": str(ROOT / "src")}, timeout=600)
+        child_s = time.perf_counter() - t0
+        assert_child_killed(proc)
+        require("finished" not in proc.stdout, "crash matrix: the child "
+                "finished")
+        probe = CheckpointManager(ckdir, keep=3)
+        steps = probe.all_steps()
+        newest = probe.latest_intact_step()
+        require(len(steps) >= 2 and newest == steps[-1] and newest <= (
+            CRASH_AFTER * EXACT_BATCH), f"crash matrix: the child left "
+            f"steps {steps}")
+        torn_write(os.path.join(probe._step_dir(newest), "arrays.npz"), 0.5)
+        mgr = CheckpointManager(ckdir, keep=3)   # verifies afresh
+        reset(kernels)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = run_build(g, rank, algo="plant", batch=EXACT_BATCH,
+                            device=dev, ckpt=mgr, resume=True)
+        torch.cuda.synchronize()
+        counts = path_launches(kernels, ("ell_relax",), "crash matrix plant")
+        require(res.resumed_from == steps[-2], f"crash matrix: resumed from "
+                f"{res.resumed_from}, want the step before the torn "
+                f"{newest}: {steps[-2]}")
+        require(any("skipping corrupt" in str(w.message) for w in caught),
+                "crash matrix: no warning for the torn step")
+        require(same_table(res.sink.table(), exact["table"]),
+                "crash matrix: resumed PLaNT table != phase 3's")
+        for name, c in counts.items():
+            launches[name] += c
+        log(f"crash matrix plant: child killed with exit "
+            f"{proc.returncode} at engine.commit after {CRASH_AFTER} "
+            f"commits ({child_s:.1f} s, process start included), steps "
+            f"left {steps}; newest torn -> resumed from {res.resumed_from}"
+            f" (warned), table == phase 3's (torch.equal); launches {counts}")
+
+        gmgr = CheckpointManager(os.path.join(tmp, "gll"), keep=1000)
+        reset(kernels)
+        full = run_build(g, rank, algo="gll", batch=EXACT_BATCH, device=dev,
+                         ckpt=gmgr)
+        gsteps = gmgr.all_steps()
+        require(len(gsteps) >= 3, f"crash matrix: gll committed {gsteps}")
+        require(same_table(full.sink.table(), exact["table"]),
+                "crash matrix: checkpointed gll table != PLaNT's")
+        mid = gsteps[len(gsteps) // 2 - 1]
+        for s in gsteps[len(gsteps) // 2:]:
+            __import__("shutil").rmtree(gmgr._step_dir(s))
+        res = run_build(g, rank, algo="gll", batch=EXACT_BATCH, device=dev,
+                        ckpt=CheckpointManager(os.path.join(tmp, "gll"),
+                                               keep=1000), resume=True)
+        torch.cuda.synchronize()
+        counts = path_launches(kernels, ("ell_relax",), "crash matrix gll")
+        require(res.resumed_from == mid, f"crash matrix: gll resumed from "
+                f"{res.resumed_from}, want {mid}")
+        require(same_table(res.sink.table(), full.sink.table())
+                and res.counters == full.counters,
+                "crash matrix: resumed gll != uninterrupted (table or "
+                "counters)")
+        for name, c in counts.items():
+            launches[name] += c
+        log(f"crash matrix gll: {len(gsteps)} flush commits; dropped those "
+            f"past {mid}, resumed from {res.resumed_from}: table and "
+            f"counters {res.counters} == the uninterrupted run's; launches "
+            f"{counts}")
+    return {"launches": launches}
+
+
+def _csr(g):
+    import numpy as np
+    import scipy.sparse as sp
+    return sp.csr_matrix((g.weights.astype(np.float64), g.indices,
+                          g.indptr), shape=(g.n, g.n))
+
+
+def _edges(g):
+    """(u, v, w) of each undirected edge once, u < v."""
+    import numpy as np
+    src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+    keep = src < g.indices
+    return src[keep], g.indices[keep], g.weights[keep]
+
+
+def _shadow(du, dv, w) -> int:
+    """How many trees an edge of weight ``w`` between the endpoints of
+    the distance planes ``du``, ``dv`` lies on a shortest or tied path
+    of: the frontier's own test, on the host."""
+    import numpy as np
+    w = np.float32(w)
+    du, dv = du.astype(np.float32), dv.astype(np.float32)
+    return int(((np.isfinite(du) & (du + w <= dv))
+                | (np.isfinite(dv) & (dv + w <= du))).sum())
+
+
+def _two_hop(g, a, d, exclude):
+    """Vertices two hops from ``a``, not adjacent to it, at distance at
+    least 2, whose edge to ``a`` is not in ``exclude``."""
+    nbrs = set(g.indices[g.indptr[a]:g.indptr[a + 1]].tolist())
+    return sorted({x for y in nbrs
+                   for x in g.indices[g.indptr[y]:g.indptr[y + 1]].tolist()
+                   if x != a and x not in nbrs and d[x] >= 2
+                   and (min(a, x), max(a, x)) not in exclude})
+
+
+def tie_mutations(g, rng):
+    """Three mutations around slack edges (weight above the endpoints'
+    distance): delete one (no shortest or tied path crosses it),
+    reweight another down to its endpoints' distance (it joins their
+    tied shortest paths), and insert a shortcut from that edge's first
+    endpoint to a vertex two hops away, one below their distance."""
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.dynamic import (EdgeDelete, EdgeInsert, EdgeReweight,
+                                     MutationBatch)
+    A = _csr(g)
+    eu, ev, ew = _edges(g)
+    slack = []
+    for i in rng.permutation(len(eu)):
+        u, v = int(eu[i]), int(ev[i])
+        d = dijkstra(A, indices=u)
+        if d[v] < ew[i]:
+            slack.append((u, v, float(d[v]), d))
+        if len(slack) == 2:
+            break
+    (du, dv, _, _), (ru, rv, rd, rdist) = slack
+    used = {(min(du, dv), max(du, dv)), (min(ru, rv), max(ru, rv))}
+    cands = _two_hop(g, ru, rdist, used)
+    x = cands[int(rng.integers(len(cands)))]
+    batch = MutationBatch([EdgeDelete(du, dv), EdgeReweight(ru, rv, rd),
+                           EdgeInsert(ru, x, float(rdist[x] - 1))])
+    return batch, ru, (f"delete slack ({du}, {dv}); reweight slack "
+                       f"({ru}, {rv}) to d = {rd:.0f}; insert ({ru}, {x}) "
+                       f"at d - 1 = {rdist[x] - 1:.0f}")
+
+
+def low_load_mutations(g, rng, candidates=32):
+    """A delete, a reweight (up by one) and a shortcut insert (one below
+    a two-hop distance), each the one of ``candidates`` seeded
+    candidates whose shadow (`_shadow`, on this graph) is smallest but
+    not empty."""
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.dynamic import (EdgeDelete, EdgeInsert, EdgeReweight,
+                                     MutationBatch)
+    A = _csr(g)
+    eu, ev, ew = _edges(g)
+    picks = rng.choice(len(eu), 2 * candidates, replace=False)
+    ranked = []
+    for i in picks:
+        u, v = int(eu[i]), int(ev[i])
+        D = dijkstra(A, indices=[u, v])
+        s = _shadow(D[0], D[1], ew[i])
+        if s:
+            ranked.append((s, u, v, float(ew[i])))
+    ranked.sort()
+    (sd, du, dv, _), (sr, ru, rv, rw) = ranked[:2]
+    used = {(min(du, dv), max(du, dv)), (min(ru, rv), max(ru, rv))}
+    best = None
+    for a in rng.choice(g.n, candidates, replace=False):
+        a = int(a)
+        da = dijkstra(A, indices=a)
+        for x in _two_hop(g, a, da, used)[:4]:
+            s = _shadow(da, dijkstra(A, indices=x), da[x] - 1)
+            if s and (best is None or s < best[0]):
+                best = (s, a, x, float(da[x] - 1))
+    si, a, x, w = best
+    batch = MutationBatch([EdgeDelete(du, dv), EdgeReweight(ru, rv, rw + 1),
+                           EdgeInsert(a, x, w)])
+    return batch, a, (f"delete ({du}, {dv}) [shadow {sd}]; reweight "
+                      f"({ru}, {rv}) {rw:.0f} -> {rw + 1:.0f} [shadow {sr}];"
+                      f" insert ({a}, {x}) at {w:.0f} [shadow {si}]")
+
+
+def phase_repair(dev, kernels, exact) -> dict:
+    """``CHLIndex.apply`` on phase 3's full PLaNT index (the largest full
+    index the script builds), twice, with one live cached service and a
+    repair journal: first a batch that joins tied paths around slack
+    edges (`tie_mutations`), then a low-load batch (`low_load_mutations`)
+    on the graph the first one made. After each: the repaired table
+    equals a fresh card build on the mutated graph; the pre-mutation
+    service, whose cache holds the old answers of the same 4096 pairs
+    (64 of them from the insert's endpoint), answers them equal to
+    Dijkstra on the mutated graph, some of them moved; the journal
+    recovers the saved artifact as post-repair."""
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.dynamic import RepairJournal
+    from repro_torch.index import BuildPlan, CHLIndex, build
+    g, rank = exact["graph"]
+    base = exact["index"]
+    idx = CHLIndex(base.store, plan=base.plan, report=base.report,
+                   rank=base.rank)
+    svc = idx.serve(mode="qlsn", batch_size=1024, cache=8192)
+    rng = np.random.default_rng(18)
+    pool = rng.choice(g.n, 255, replace=False)
+    launches = {k.name: 0 for k in kernels}
+    out = {}
+    scratch = ROOT / "build"                 # git-ignored, in the checkout
+    scratch.mkdir(exist_ok=True)
+    for i, (name, make) in enumerate((("ties", tie_mutations),
+                                      ("low-load", low_load_mutations))):
+        batch, a, what = make(g, rng)
+        g_new = batch.apply(g)
+        d_old = dijkstra(_csr(g), indices=a)
+        d_new = dijkstra(_csr(g_new), indices=a)
+        ys = np.flatnonzero(d_new != d_old)[:64]
+        ys = np.concatenate([ys, rng.integers(0, g.n, 64 - len(ys))])
+        u = np.concatenate([rng.choice(pool, 4032), np.full(64, a)])
+        v = np.concatenate([rng.integers(0, g.n, 4032), ys])
+        src = np.unique(u)
+        row = np.searchsorted(src, u)
+        want_old = dijkstra(_csr(g), indices=src)[row, v].astype(np.float32)
+        want = dijkstra(_csr(g_new), indices=src)[row, v].astype(np.float32)
+        svc.submit(u, v)
+        require(np.array_equal(svc.flush(), want_old),
+                f"repair {name}: pre-mutation service != Dijkstra")
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            art = idx.save(os.path.join(tmp, "index"))
+            journal = RepairJournal.for_artifact(art)
+            reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = idx.apply(batch, graph=g, journal=journal)
+            torch.cuda.synchronize()
+            repair_s = time.perf_counter() - t0
+            svc.submit(u, v)
+            served = svc.flush()
+            counts = path_launches(kernels, ("ell_relax", "label_query"),
+                                   f"repair {name}")
+            idx.save(art)
+            state = journal.recover(CHLIndex.load(art, rank=rank,
+                                                  device=dev))
+            require(state == "post" and journal.pending() is None,
+                    f"repair {name}: journal recovered {state!r}")
+        for k, c in counts.items():
+            launches[k] += c
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = build(g_new, rank, BuildPlan(algo="plant", batch=EXACT_BATCH,
+                                             cap=rep.cap), device=dev)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        require(same_table(idx.table, fresh.table), f"repair {name}: "
+                "repaired table != a fresh card build on the mutated graph")
+        moved = int((want != want_old).sum())
+        require(np.array_equal(served, want) and moved > 0,
+                f"repair {name}: served answers != Dijkstra on the mutated "
+                f"graph, or none moved ({moved})")
+        require(svc.stats_.invalidations == i + 1,
+                f"repair {name}: {svc.stats_.invalidations} invalidations")
+        log(f"repair {name} n={g.n}: {what}; affected {rep.affected} of "
+            f"{g.n} trees ({rep.affected / g.n * 100:.2f} %), invalidated "
+            f"{rep.invalidated}, repaired {rep.repaired}, {rep.waves} "
+            f"waves, {rep.total_labels} labels (cap {rep.cap}); repair "
+            f"wall {repair_s:.3f} s against a fresh card build "
+            f"{rebuild_s:.3f} s ({repair_s / rebuild_s * 100:.1f} %); "
+            f"repaired table == the fresh build (torch.equal); the "
+            f"pre-mutation service's 4096 answers == scipy Dijkstra on the "
+            f"mutated graph ({moved} moved from their cached values), "
+            f"invalidation {i + 1}; journal recover -> 'post'; launches "
+            f"{counts}")
+        out[name] = {"repair_s": repair_s, "rebuild_s": rebuild_s,
+                     "affected": rep.affected}
+        g = g_new
+    return {"launches": launches, **out}
+
+
+def phase_frontier_mid(dev, kernels, g) -> dict:
+    """``affected_hubs`` for a seeded batch of 4 mutations on the
+    road-mid graph: the endpoint planes' wall, their sweeps (one launch
+    of a relaxation kernel a sweep) and the affected count; one endpoint
+    plane is held against scipy's Dijkstra. Cut: no re-plant at this n
+    (no full index of it fits the script's budget)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.dynamic import (affected_hubs, endpoint_planes,
+                                     random_mutations)
+    batch = random_mutations(g, np.random.default_rng(18), inserts=1,
+                             deletes=2, reweights=1)
+    t0 = time.perf_counter()
+    rb = batch.resolve(g)
+    g_new = batch.apply(g)
+    host_s = time.perf_counter() - t0
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    affected = affected_hubs(g, g_new, rb, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    sweeps = counts["ell_relax"] + counts["ell_relax_windowed"]
+    r = int(rb.u[0])
+    plane = endpoint_planes(g, [r], device=dev)[r]
+    A = sp.csr_matrix((g.weights.astype(np.float64), g.indices, g.indptr),
+                      shape=(g.n, g.n))
+    require(np.array_equal(plane, dijkstra(A, indices=r).astype(np.float32)),
+            "frontier: endpoint plane != scipy Dijkstra")
+    log(f"frontier road-mid n={g.n}: {batch.counts} on "
+        f"{len(batch.touched())} endpoints: endpoint planes + tied-path "
+        f"test {wall:.3f} s ({sweeps} sweeps: ell_relax "
+        f"{counts['ell_relax']}, ell_relax_windowed "
+        f"{counts['ell_relax_windowed']}), host resolve + apply "
+        f"{host_s:.2f} s; affected {len(affected)} of {g.n} "
+        f"({len(affected) / g.n * 100:.2f} %); an endpoint plane == scipy "
+        "Dijkstra. Cut: no re-plant at this n (no full index of "
+        f"{g.n} vertices fits the script's budget)")
+    require(sweeps > 0, f"frontier: no relaxation launch {counts}")
+    return {"launches": counts, "wall": wall, "affected": len(affected)}
 
 def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
     """The relaxation kernels, and their plain versions, on one mid-build
@@ -1306,6 +1812,8 @@ def main() -> int:
     exact = phase_exactness(dev, kernels)
     add(exact["launches"])
     add(phase_shared_memory(dev, kernels, exact)["launches"])
+    add(phase_crash_matrix(dev, kernels, exact)["launches"])
+    add(phase_repair(dev, kernels, exact)["launches"])
     g, rank = exact["graph"]
     lq = {"exactness": time_query_table(
         dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
@@ -1330,6 +1838,8 @@ def main() -> int:
         require(list(r) == ["ell_relax"], f"{what}: planes outgrow half "
                 "the L2, so the state is not on the dense route")
         mid[what] = r["ell_relax"]
+        if what == "road-mid":
+            add(phase_frontier_mid(dev, kernels, g)["launches"])
         del g, rank
 
     dense = phase_dense(dev, kernels)
@@ -1341,6 +1851,7 @@ def main() -> int:
     road = phase_scale(dev, kernels, "road", g, rank, ROAD_BATCH,
                        ROAD_TREES, ROAD_CAP)
     add(road["launches"])
+    add(phase_road_resume(dev, kernels, g, rank, road)["launches"])
     ru, rv = (torch.as_tensor(road[x], device=dev) for x in ("u", "v"))
     lq["road"] = time_query_table(dev, "road", road["table"], ru, rv)
     lq["operand_road"] = time_label_operands(dev, road["table"], ru, rv)

@@ -2,9 +2,10 @@
 
 A policy is what is left of a construction algorithm once the engine
 owns the loop: the per-batch device step, the emission filter and any
-phase rule (GLL's alpha-threshold flush). Checkpoint state
-(``meta``/``load_meta``) waits for the checkpoint slice (ROADMAP
-Queue 1, item 5).
+phase rule (GLL's alpha-threshold flush). The checkpoint hooks
+(``kind``, ``fingerprint``, ``config``, ``meta``/``load_meta``,
+``counters``/``load_counters``) are what ``engine.run`` stamps into a
+checkpoint and checks before it resumes from one.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ class StepOutcome(NamedTuple):
 
 def build_fingerprint(g, rank: np.ndarray) -> str:
     """Stable fingerprint of (graph, hierarchy), as the reference
-    computes it — what checkpoints will carry once they are ported, so
-    that a resume never adopts labels of another build."""
+    computes it: engine checkpoints carry it, so that a resume never
+    adopts labels committed for another build."""
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(
         np.asarray(rank).astype(np.int64)).tobytes())
@@ -56,6 +57,10 @@ class Policy:
     """Interface the engine drives. Subclasses override what they use."""
 
     name: str = "?"
+    #: checkpoint-compatibility class: construction policies are
+    #: "build", incremental repair is "repair"; a checkpoint written
+    #: under one kind is never adopted by the other
+    kind: str = "build"
     #: True: the engine reads stats (and checks overflow) at every
     #: commit; False: one batched fetch after the loop
     eager_stats: bool = False
@@ -77,11 +82,11 @@ class Policy:
         raise NotImplementedError
 
     def begin(self, start_pos: int, resumed: bool) -> None:
-        """Called once before the loop."""
+        """Called once before the loop (after any resume restore)."""
 
     def prologue(self, sink) -> Optional[Tuple[StepOutcome, int]]:
         """Optional pre-loop phase consuming roots; returns (outcome,
-        new root cursor)."""
+        new root cursor). Only called on fresh (non-resumed) runs."""
         return None
 
     def step(self, st: Step, sink) -> Optional[StepOutcome]:
@@ -95,8 +100,19 @@ class Policy:
     def observe(self, record: SuperstepRecord) -> None:
         """Committed-record hook."""
 
+    # ------------------------------------------------ checkpoint bits
+
+    def meta(self) -> dict:
+        return {}
+
+    def load_meta(self, meta: dict) -> None:
+        del meta
+
     def counters(self) -> Dict[str, int]:
         return {}
+
+    def load_counters(self, counters: Dict[str, int]) -> None:
+        del counters
 
     def extras(self, sink) -> dict:
         return {}
@@ -205,6 +221,9 @@ class GLLPolicy(Policy):
         return BatchSchedule(self.order, self.batch)
 
     def begin(self, start_pos: int, resumed: bool) -> None:
+        # a resumed run re-enters at a flush boundary: the local table
+        # and the pending buffer start empty, and the PLaNTed first
+        # superstep (if any) is already committed
         self._first = start_pos == 0
 
     def step(self, st: Step, sink) -> Optional[StepOutcome]:
@@ -262,6 +281,10 @@ class GLLPolicy(Policy):
 
     def counters(self) -> Dict[str, int]:
         return {"cleaned": self._cleaned, "constructed": self._constructed}
+
+    def load_counters(self, counters: Dict[str, int]) -> None:
+        self._cleaned = int(counters.get("cleaned", 0))
+        self._constructed = int(counters.get("constructed", 0))
 
 
 class PLLRefPolicy(Policy):

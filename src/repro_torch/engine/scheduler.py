@@ -42,7 +42,12 @@ class BatchSchedule:
         self.batch = int(batch)
         self.total = len(self.order)
 
-    def steps(self, start: int = 0) -> Iterator[Step]:
+    def steps(self, start: int = 0,
+              size: Optional[int] = None) -> Iterator[Step]:
+        """Steps from root cursor ``start`` (a resume re-enters on the
+        original batch boundaries); ``size`` is the growth cursor of
+        the reference's queue schedules, unused here."""
+        del size
         pos = int(start)
         for roots, valid in root_batches(self.order[start:], self.batch):
             yield Step(pos=pos, end=min(pos + self.batch, self.total),

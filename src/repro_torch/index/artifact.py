@@ -8,6 +8,7 @@ produced it, the build report and the vertex hierarchy::
     srv = idx.serve(mode="qlsn")     # QueryService
     idx.save("run/index")            # on-disk artifact, format v3
     idx2 = CHLIndex.load("run/index", rank=rank)
+    idx.apply(batch, graph=g)        # repair in place for a mutated graph
 
 The on-disk format is the reference package's version 3, so artifacts
 move between the two packages both ways::
@@ -23,9 +24,11 @@ move between the two packages both ways::
 Loads verify every shard file against its recorded sha256, the
 per-shard label counts and the rank hash. Writes go through a tmp dir
 and ``os.replace``: an overwrite never deletes the live artifact before
-the replacement is staged. This slice saves and loads dense artifacts;
-sharded, spill and compressed residency and the v1/v2 formats are
-still to port.
+the replacement is staged; shard writes retry transient I/O and pass
+the ``artifact.save.shard`` / ``artifact.save.commit`` fault sites, shard
+reads ``artifact.load.shard``. This slice saves and loads dense
+artifacts; sharded, spill and compressed residency and the v1/v2
+formats are still to port.
 """
 
 from __future__ import annotations
@@ -34,12 +37,15 @@ import hashlib
 import json
 import os
 import shutil
-from typing import Optional, Tuple
+import weakref
+import zipfile
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch import interop
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.ft.inject import fault_site, with_retries
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport
 from repro_torch.index.store import (CorruptArtifactError, DenseStore,
@@ -78,6 +84,9 @@ class CHLIndex:
         self.plan = plan
         self.report = report
         self.rank = np.asarray(rank)
+        # live QueryServices handed out by serve(), kept weakly with
+        # the mode needed to rebuild their answer fns after apply()
+        self._services: List[Tuple[weakref.ref, str]] = []
 
     # ---------------------------------------------------- properties
 
@@ -118,17 +127,69 @@ class CHLIndex:
               breaker_threshold: int = 5,
               breaker_reset_s: float = 30.0) -> QueryService:
         """The serving tier (:class:`repro_torch.serve.QueryService`)
-        over this index's labels; see the service for the knobs."""
-        fn = backends.make_answer_fn(self.store, mode)
-        return QueryService(fn, batch_size=batch_size,
-                            drop_first=drop_first,
-                            deadline_s=deadline_ms * 1e-3,
-                            cache_size=cache, max_queue=max_queue,
-                            cache_symmetric=True,
-                            timeout_s=(None if timeout_ms is None
-                                       else timeout_ms * 1e-3),
-                            breaker_threshold=breaker_threshold,
-                            breaker_reset_s=breaker_reset_s)
+        over this index's labels; see the service for the knobs.
+
+        The returned service stays registered (weakly) with this index:
+        :meth:`apply` re-installs every live service's answer fn and
+        bumps its cache epoch, so a mutated index never serves a stale
+        answer."""
+        svc = QueryService(self._answer_fn(mode), batch_size=batch_size,
+                           drop_first=drop_first,
+                           deadline_s=deadline_ms * 1e-3,
+                           cache_size=cache, max_queue=max_queue,
+                           cache_symmetric=True,
+                           timeout_s=(None if timeout_ms is None
+                                      else timeout_ms * 1e-3),
+                           breaker_threshold=breaker_threshold,
+                           breaker_reset_s=breaker_reset_s)
+        self._services.append((weakref.ref(svc), mode))
+        return svc
+
+    def _answer_fn(self, mode: str):
+        """The serving answer callable over the current labels (what
+        serve() installs and apply() re-installs)."""
+        return backends.make_answer_fn(self.store, mode)
+
+    # --------------------------------------------------------- mutate
+
+    def apply(self, mutations, *, graph, ckpt=None, resume: bool = False,
+              verbose: bool = False, journal=None):
+        """Apply a :class:`repro_torch.dynamic.MutationBatch` to this
+        index in place, re-planting only the affected trees, and
+        invalidate every live service handed out by :meth:`serve`.
+
+        ``graph`` is the **pre-mutation** graph the index was built on
+        (the artifact stores labels, not edges). The repaired labels
+        are bit-identical to a from-scratch PLaNT build on
+        ``mutations.apply(graph)``; returns the
+        :class:`repro_torch.dynamic.RepairReport`. ``ckpt``/``resume``
+        checkpoint the repair wave like a build (under
+        ``kind="repair"``). ``journal`` (a
+        :class:`repro_torch.dynamic.RepairJournal`) makes the repair
+        crash-atomic end to end: the intent and the pre-mutation store
+        fingerprint are durable before the first label moves, the
+        post-repair fingerprint before any save."""
+        from repro_torch.dynamic.repair import repair_index
+        if journal is not None:
+            journal.begin(mutations, self)
+        report = repair_index(self, mutations, graph, ckpt=ckpt,
+                              resume=resume, verbose=verbose)
+        if journal is not None:
+            journal.record_post(self)
+        self._invalidate_services()
+        return report
+
+    def _invalidate_services(self) -> None:
+        """Rebuild each live service's answer fn against the mutated
+        store and bump its cache epoch; dead services are pruned."""
+        alive = []
+        for ref, mode in self._services:
+            svc = ref()
+            if svc is None:
+                continue
+            svc.invalidate(self._answer_fn(mode))
+            alive.append((ref, mode))
+        self._services = alive
 
     # ------------------------------------------------------ validate
 
@@ -195,7 +256,9 @@ class CHLIndex:
         shard_labels, shard_sha = [], []
         for k, arrs in self.store.shard_arrays():
             path = os.path.join(tmp, shard_filename(k))
-            np.savez(path, **arrs)
+            with_retries(lambda: np.savez(path, **arrs),
+                         describe=f"index shard {k}")
+            fault_site("artifact.save.shard", path=path)
             shard_sha.append(file_sha256(path))
             shard_labels.append(int(np.sum(arrs["count"])))
         store_info = {"kind": "dense", "shards": self.store.num_shards,
@@ -215,6 +278,8 @@ class CHLIndex:
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=2)
+        fault_site("artifact.save.commit",
+                   path=os.path.join(tmp, "manifest.json"))
         old = tmp + ".old"
         shutil.rmtree(old, ignore_errors=True)
         if os.path.isdir(directory):
@@ -281,10 +346,12 @@ class CHLIndex:
     @staticmethod
     def _open_shard(directory: str, k: int) -> dict:
         path = os.path.join(directory, shard_filename(k))
+        fault_site("artifact.load.shard", path=path)
         try:
             with np.load(path) as z:
                 return {name: z[name] for name in ("hubs", "dist", "count")}
-        except (OSError, KeyError, ValueError) as e:
+        except (OSError, KeyError, ValueError, EOFError,
+                zipfile.BadZipFile) as e:
             raise CorruptArtifactError(
                 f"{directory}: {shard_filename(k)} unreadable ({e})") from e
 

@@ -5,7 +5,10 @@ device, takes the engine's typed records into a :class:`BuildReport`
 and packages the labels as a :class:`CHLIndex`. A label-table overflow
 retries with the cap grown geometrically (``plan.cap_growth``, clamped
 to n, at most ``plan.max_cap_retries`` times); every regrow is recorded
-in ``report.overflow_events``.
+in ``report.overflow_events``. With a checkpoint manager attached
+(``ckpt=``), every committed superstep is checkpointed, and a regrow
+retry resumes from the last committed superstep (the engine pads the
+smaller-cap state to the grown cap) instead of restarting the build.
 
 The port builds ``plant``, ``pll-ref``, ``gll``, ``lcc`` and
 ``parapll`` into ``store="dense"``; other algorithms and stores raise
@@ -32,9 +35,12 @@ from repro_torch.kernels.ell_relax import layout_plan, windowed_note
 
 
 def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
-          device: DeviceLike = None, verbose: bool = False) -> CHLIndex:
+          device: DeviceLike = None, ckpt=None, resume: bool = False,
+          verbose: bool = False) -> CHLIndex:
     """Construct a :class:`CHLIndex` per ``plan`` on ``device``
-    (default: the card; raises without CUDA)."""
+    (default: the card; raises without CUDA). ``ckpt`` (a
+    ``CheckpointManager``) checkpoints every committed superstep;
+    ``resume`` continues from the last compatible one."""
     dev = resolve_device(device)
     plan = plan or BuildPlan()
     if plan.algo not in PORTED_ALGOS:
@@ -59,8 +65,13 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     attempt = 0
     while True:
         try:
+            # the first attempt resumes only on request; regrow retries
+            # resume whenever checkpoints exist
             res = run_build(g, rank, algo=plan.algo, batch=plan.batch,
                             cap=cap, alpha=plan.alpha, device=dev,
+                            ckpt=ckpt,
+                            resume=(resume if attempt == 0
+                                    else ckpt is not None),
                             verbose=verbose)
             break
         except LabelOverflowError as e:

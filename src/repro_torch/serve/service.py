@@ -66,6 +66,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.ft.inject import fault_site
 from repro_torch.serve.cache import AnswerCache
 from repro_torch.serve.stats import ServiceStats
 
@@ -321,9 +322,11 @@ class QueryService:
         st = self.stats_
         t0 = time.perf_counter()
         try:
+            fault_site("serve.answer")
             res = self._answer(torch.from_numpy(u), torch.from_numpy(v))
             res = res.cpu().numpy().astype(np.float32, copy=False)
-        except Exception as e:       # a failed launch fails its batch only
+        except Exception as e:       # a failed launch fails its batch
+            #                          only; an InjectedCrash passes
             end = self._clock()
             error = f"{type(e).__name__}: {e}"
             self._last_error = error

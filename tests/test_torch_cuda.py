@@ -528,3 +528,90 @@ def test_out_of_range_id_is_a_device_fault(cuda_device):
                          capture_output=True, text=True, timeout=600)
     assert res.returncode != 0
     assert "assert" in (res.stdout + res.stderr).lower()
+
+
+@pytest.mark.parametrize("algo,windows", [("plant", False), ("gll", False),
+                                          ("plant", True)])
+def test_resume_on_card_equals_cpu(cuda_device, algo, windows, tmp_path,
+                                   monkeypatch):
+    """A card build crashed at its third ``engine.commit`` resumes on the
+    card to the CPU build's table, counters and records; so does a
+    card resume from the CPU's checkpoints of the same build (with
+    ``windows`` an L2 that forces 3 source windows on the card)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import run_build
+    from repro_torch.ft import Fault, FaultPlan, InjectedCrash, faults
+    g = random_connected(300, 260, seed=7, max_w=3)
+    rank = degree_ranking(g)
+    kw = dict(algo=algo, batch=8, alpha=2.0)
+    cpu = run_build(g, rank, device="cpu", **kw)
+    if windows:
+        monkeypatch.setattr(port_layout, "l2_bytes",
+                            lambda device: 2 * 8 * 8 * 128)
+    mgr = CheckpointManager(str(tmp_path / "card"), keep=100)
+    with faults(FaultPlan({"engine.commit": [Fault("crash", after=2)]})):
+        with pytest.raises(InjectedCrash):
+            run_build(g, rank, device=cuda_device, ckpt=mgr, **kw)
+    for k in (ELL_RELAX, WINDOWED_KERNEL):
+        k.launches = 0
+    card = run_build(g, rank, device=cuda_device, ckpt=mgr, resume=True,
+                     **kw)
+    assert card.resumed_from is not None and card.resumed_from > 0
+    assert (WINDOWED_KERNEL if windows else ELL_RELAX).launches > 0
+    cpu_mgr = CheckpointManager(str(tmp_path / "cpu"), keep=100)
+    run_build(g, rank, device="cpu", ckpt=cpu_mgr, **kw)
+    for s in cpu_mgr.all_steps()[1:]:
+        __import__("shutil").rmtree(cpu_mgr._step_dir(s))
+    from_cpu = run_build(g, rank, device=cuda_device, ckpt=cpu_mgr,
+                         resume=True, **kw)
+    assert from_cpu.resumed_from == cpu_mgr.all_steps()[0]
+    for res in (card, from_cpu):
+        assert res.sink.table().hubs.device.type == "cuda"
+        for a, b in zip(res.sink.table(), cpu.sink.table()):
+            assert torch.equal(a.cpu(), b)
+        assert res.counters == cpu.counters
+    assert [r.trees for r in card.records] == [r.trees for r in cpu.records]
+
+
+def test_repair_on_card_equals_cpu(cuda_device):
+    """``apply`` on a card index (the frontier's endpoint sweeps and the
+    re-plant on the card) equals the CPU repair, array for array, and
+    the service handed out before the mutation answers the mutated
+    graph's distances through the query kernel."""
+    from repro_torch.dynamic import random_mutations
+    from repro_torch.sssp.oracle import dijkstra
+    g = grid_road(9, 9, seed=1)
+    rank = degree_ranking(g)
+    batch = random_mutations(g, np.random.default_rng(5), inserts=1,
+                             deletes=1, reweights=1)
+    cpu = build(g, rank, BuildPlan(algo="plant", batch=8), device="cpu")
+    cpu_rep = cpu.apply(batch, graph=g)
+    card = build(g, rank, BuildPlan(algo="plant", batch=8),
+                 device=cuda_device)
+    svc = card.serve(batch_size=64, cache=256)
+    rng = np.random.default_rng(0)
+    u, v = rng.integers(0, g.n, 200), rng.integers(0, g.n, 200)
+    svc.submit(u, v)
+    svc.flush()
+    for k in (ELL_RELAX, LABEL_QUERY):
+        k.launches = 0
+    rep = card.apply(batch, graph=g)
+    assert ELL_RELAX.launches > 0
+    assert card.store.device.type == "cuda"
+    for a, b in zip(card.table, cpu.table):
+        assert torch.equal(a.cpu(), b)
+    # the card's sweep loop checks its fixpoint every 4 sweeps, the
+    # CPU's every sweep: only the records' sweep counts differ
+    p, c = rep.to_dict(), cpu_rep.to_dict()
+    for r in (p, c):
+        r.pop("wall_s")
+        r["supersteps"] = [(s["labels"], s["explored"], s["trees"])
+                           for s in r["supersteps"]]
+    assert p == c and rep.affected > 0
+    svc.submit(u, v)
+    got = svc.flush()
+    assert svc.stats_.invalidations == 1 and LABEL_QUERY.launches > 0
+    g_new = batch.apply(g)
+    want = np.array([dijkstra(g_new, int(a))[int(b)] for a, b in zip(u, v)],
+                    np.float32)
+    assert np.array_equal(got, want)

@@ -49,6 +49,10 @@ def test_port_tree_is_found():
     assert "src/repro_torch/kernels/label_query/label_query.py" in names
     assert "src/repro_torch/kernels/ell_relax/windowed.py" in names
     assert "src/repro_torch/kernels/minplus/minplus.py" in names
+    for module in ("checkpoint/manager.py", "ft/inject.py", "ft/harness.py",
+                   "dynamic/mutations.py", "dynamic/frontier.py",
+                   "dynamic/repair.py", "dynamic/journal.py"):
+        assert f"src/repro_torch/{module}" in names
     assert len(names) > 20
 
 

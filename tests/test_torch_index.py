@@ -21,6 +21,8 @@ from repro.index import BuildPlan as RefPlan
 from repro.index import CHLIndex as RefIndex
 from repro.index import build as ref_build
 from repro_torch import interop
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.dynamic import MutationBatch
 from repro_torch.engine import run_build
 from repro_torch.index import (BuildPlan, CHLIndex, CorruptArtifactError,
                                build)
@@ -147,13 +149,40 @@ def test_unported_paths_raise():
                                                     store="sharded")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(pg, rank, plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_build(pg, rank, algo="plant", ckpt=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         run_build(pg, rank, algo="directed", device="cpu")
     idx = build(pg, rank, BuildPlan(algo="plant"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         idx.serve(mode="qfdl")
+    # apply() repairs dense stores of undirected graphs: a directed graph
+    # (item 8) and a sharded store (item 9) are refused
+    gd = interop.graph(rg.random_connected(16, extra_edges=10, seed=0,
+                                           directed=True))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        idx.apply(MutationBatch([]), graph=gd)
+
+    class ShardedLike:
+        kind = "sharded"
+    sharded = CHLIndex(ShardedLike(), plan=idx.plan, report=idx.report,
+                       rank=rank)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sharded.apply(MutationBatch([]), graph=pg)
+
+
+def test_checkpointed_build_equals_plain_build(tmp_path):
+    """``ckpt=`` checkpoints every committed superstep (it raised before
+    checkpoints were ported) and changes no label."""
+    g, rank = _case("grid")
+    pg = interop.graph(g)
+    mgr = CheckpointManager(str(tmp_path))
+    res = run_build(pg, rank, algo="plant", batch=8, ckpt=mgr, device="cpu")
+    plain = run_build(pg, rank, algo="plant", batch=8, device="cpu")
+    assert mgr.all_steps() and mgr.peek()["pos"] == g.n
+    assert res.resumed_from is None and plain.resumed_from is None
+    for a, b in zip(res.sink.table(), plain.sink.table()):
+        assert torch.equal(a, b)
+    assert [r.to_dict() for r in res.records] == \
+        [r.to_dict() for r in plain.records]
 
 
 def test_run_build_custom_root_order():
