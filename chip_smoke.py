@@ -54,6 +54,21 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    it (some moved), and the journal recovers the saved artifact as
    post-repair; affected share and the repair and rebuild walls are
    logged;
+3e. directed exactness: random_connected(4096, 8192 extra arcs,
+   directed), degree ranking, a full ``build(algo="directed")`` at
+   batch 16 (PLaNT on G into L_in and on its reverse into L_out each
+   batch); 65,536 pairs served through ``serve(mode="qlsn")`` (one
+   two-table label_query launch a flush) equal scipy's Dijkstra on the
+   digraph; save -> load gives equal tables; a run stopped by a soft
+   crash at its second ``engine.commit`` resumes to the uninterrupted
+   out and in tables;
+3f. sharded exactness: ``build(store="sharded", shards=4)`` on phase 3's
+   graph (PLaNT streamed into the hub shards) equals phase 3's table
+   re-homed by ``ShardedStore.from_table``; routed serving equals
+   Dijkstra and the stacked (dist, hub) the dense store's; save, then
+   load as sharded, as dense and re-sharded to K = 3, each equal to its
+   re-homing; ``apply`` of phase 3d's low-load batch on a sharded index
+   equals the dense repair's table re-homed;
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card;
@@ -77,6 +92,14 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    into the relaxation kernel, the sweep loop's mask/frontier ops, the
    distance-query cover (``hub_distance_map`` + ``cover_distance``)
    and ``clean_superstep``;
+5c. sharded road: phase 5's superstep (same graph, roots, batch and
+   cap) streamed into 4 hub shards through ``StreamingShardSink``
+   (each shard two of the 8 trees); the shards equal
+   ``hub_partition_arrays`` of phase 5's table, and a ``ShardedStore``
+   on the card answers phase 5's pairs stacked (4 launches and one
+   cross-shard minimum: dist and hub) and routed, equal to the dense
+   store; the host insert, the accumulator's bytes and the stacked
+   query's device time beside ``query_table``'s are logged;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
@@ -85,11 +108,19 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    16 sweeps of the sweep loop (``batched_sssp_maxrank``): the
    device's busy share, each kernel's device time by name, and per
    sweep the relaxation kernel, the loop's own tensor ops and the
-   idle time.
+   idle time;
+7. directed scale: the chl-scalefree configuration on
+   random_connected(4,194,304, 4,194,304 extra arcs, directed): the 8
+   top-ranked roots through ``DirectedPlantPolicy`` at batch 4, cap 32,
+   G and its reverse each through the source-windowed sweep, then
+   65,536 queries (h, v) and (v, h) for planted roots h (exact: every
+   vertex ranked above h is planted) served in one flush, equal to the
+   plain query and, for two roots, to scipy's Dijkstra on G and on its
+   transpose; the two-table form is then timed at this state.
 
-Launch counts are set to 0 just before each of phases 3-6 (and each
-build of 3b, each resume of 3c, the repair of 3d, the frontier and the
-road resume) and read just after it; a phase fails if a kernel of its
+Launch counts are set to 0 just before each of phases 3-7 (and each
+build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
+repair of 3f, the frontier and the road resume) and read just after it; a phase fails if a kernel of its
 path was not launched.
 Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
@@ -102,7 +133,9 @@ a synthetic full table (L = count = 256, hubs from a shared pool), the
 road table (L = 8) and the random table (L = 32), each held equal to
 the plain query and shown to be one launch of the hand-written kernel
 and no other device work by its profiler window; label_query's operand
-form stays timed at the road serving shape. Each kernel gets three
+form stays timed at the road serving shape, its two-table form (a
+directed query) at phase 7's state, and the sharded road store's
+stacked query (4 launches) beside ``query_table`` in phase 5c. Each kernel gets three
 times: ``ms``, CUDA events around a loop of wrapper calls
 (the host may pace it); ``device_ms``, the kernel's own device time per
 call from a ``torch.profiler`` window over the same calls; and
@@ -155,6 +188,12 @@ MID_ROAD_SIDE = 896               # n = 802,816: 25.7 MB of planes
 MID_RANDOM_N = 786_432            # 25.2 MB of planes
 MID_SWEEPS = {"road-mid": 128, "random-mid": 8}
 SERVE_Q = 65_536
+# the directed exactness graph (random_connected(4096, 8192 extra arcs,
+# directed)) and the hub shards of the sharded phases: K = 4 on the road
+# state gives each shard two of the 8 trees (at K = 8 the host
+# accumulator alone would be 8.6 GB)
+DIRECTED_EXACT_N = 4096
+EXACT_SHARDS = ROAD_SHARDS = 4
 # the synthetic full-row query state (no graph behind it): L = count =
 # 256, hubs from a shared pool so rows overlap, a table past the L2
 SYNTH_N, SYNTH_L, SYNTH_POOL = 262_144, 256, 1024
@@ -478,6 +517,24 @@ def query_table_bound_ms(table, u, v):
     Q = u.shape[0]
     return bound(Q * (16 + 8 + 8) + 8 * float((cu + cv).sum()),
                  float((cu * cv).sum()))
+
+
+def stacked_bound_ms(store, u, v):
+    """The sharded query as a function, counted from this run's rows: the
+    two int64 ids of each query once, each endpoint's count in every
+    shard (8 B a shard a query), the valid prefix of every shard row
+    (8 B a slot) and one (dist, hub) answer; count_u * count_v hub
+    compares a shard at the f32 rate. Returns (bound, the stacked
+    design's bound): the design also re-reads the ids in each of its K
+    launches and writes K partial (dist, hub) pairs that the cross-shard
+    minimum reads back."""
+    K, Q = store.num_shards, u.shape[0]
+    cu = store.count[:, u].double()
+    cv = store.count[:, v].double()
+    fn_bytes = Q * (16 + 8 * K + 8) + 8 * float((cu + cv).sum())
+    ops = float((cu * cv).sum())
+    extra = (K - 1) * 16 * Q + 2 * 8 * K * Q
+    return bound(fn_bytes, ops), bound(fn_bytes + extra, ops)
 
 
 def minplus_bound_ms(B, K, N):
@@ -1412,7 +1469,8 @@ def phase_repair(dev, kernels, exact) -> dict:
             f"invalidation {i + 1}; journal recover -> 'post'; launches "
             f"{counts}")
         out[name] = {"repair_s": repair_s, "rebuild_s": rebuild_s,
-                     "affected": rep.affected}
+                     "affected": rep.affected, "batch": batch, "graph": g,
+                     "table": idx.table}
         g = g_new
     return {"launches": launches, **out}
 
@@ -1460,6 +1518,551 @@ def phase_frontier_mid(dev, kernels, g) -> dict:
         f"{g.n} vertices fits the script's budget)")
     require(sweeps > 0, f"frontier: no relaxation launch {counts}")
     return {"launches": counts, "wall": wall, "affected": len(affected)}
+
+def _scipy_csr(g):
+    import numpy as np
+    import scipy.sparse as sp
+    return sp.csr_matrix((g.weights.astype(np.float64), g.indices,
+                          g.indptr), shape=(g.n, g.n))
+
+
+def phase_directed_exactness(dev, kernels) -> dict:
+    """A full directed build on the card (``algo="directed"``: PLaNT on
+    G and on its reverse a batch): SERVE_Q served pairs equal scipy's
+    Dijkstra on the digraph; save -> load gives equal ``L_out``/``L_in``;
+    a run stopped by a soft crash at its second ``engine.commit`` and
+    resumed equals the uninterrupted tables."""
+    import shutil
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import run_build
+    from repro_torch.ft import Fault, FaultPlan, InjectedCrash, faults
+    from repro_torch.graphs import degree_ranking, random_connected
+    from repro_torch.index import BuildPlan, CHLIndex, build
+    g = random_connected(DIRECTED_EXACT_N, extra_edges=2 * DIRECTED_EXACT_N,
+                         seed=7, directed=True)
+    rank = degree_ranking(g)
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = build(g, rank, BuildPlan(algo="directed", batch=EXACT_BATCH),
+                device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rng = np.random.default_rng(19)
+    u = rng.integers(0, g.n, SERVE_Q)
+    v = rng.integers(0, g.n, SERVE_Q)
+    srv = idx.serve(mode="qlsn", batch_size=SERVE_Q)
+    srv.submit(u, v)
+    served = srv.flush()
+    counts = path_launches(kernels, ("ell_relax", "label_query"),
+                           "directed exactness")
+    t1 = time.perf_counter()
+    src = np.unique(u)
+    want = dijkstra(_scipy_csr(g), indices=src)[np.searchsorted(src, u),
+                                                 v].astype(np.float32)
+    oracle_s = time.perf_counter() - t1
+    require(np.array_equal(served, want),
+            "directed exactness: served != Dijkstra")
+    back = idx.query(v, u)
+    asym = int((back != served).sum())
+    require(asym > 0, "directed exactness: d(u->v) == d(v->u) everywhere")
+    d, hub = idx.query_with_hub(u, v)
+    require(np.array_equal(d, served) and bool((hub >= 0).all()),
+            "directed exactness: query_with_hub != served, or a pair "
+            "without a hub")
+    scratch = ROOT / "build"                 # git-ignored, in the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        loaded = CHLIndex.load(idx.save(os.path.join(tmp, "index")),
+                               rank=rank, device=dev)
+    require(loaded.directed and same_table(loaded.l_out, idx.l_out)
+            and same_table(loaded.l_in, idx.l_in),
+            "directed exactness: loaded tables != built")
+    sweeps = sum(r.sweeps for r in idx.report.supersteps)
+    regrows = [e.to_dict() for e in idx.report.overflow_events]
+    log(f"directed exactness n={g.n} m={g.m}: build {wall:.3f} s, "
+        f"{len(idx.report.supersteps)} supersteps, {sweeps} sweeps (the "
+        f"larger direction's a batch), {idx.total_labels} labels (ALS "
+        f"{idx.als:.2f} a direction, cap {idx.report.cap}, overflow events "
+        f"{regrows}); {SERVE_Q} "
+        f"served pairs == scipy Dijkstra on the digraph ({oracle_s:.1f} "
+        f"s; {asym} pairs differ from their reverse); save->load tables "
+        f"equal; launches {counts}")
+
+    ckdir = scratch / "directed_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    reset(kernels)
+    fplan = FaultPlan({"engine.commit": [Fault("crash", after=1)]})
+    mgr = CheckpointManager(str(ckdir), keep=1)
+    try:
+        with faults(fplan):
+            run_build(g, rank, algo="directed", batch=EXACT_BATCH,
+                      cap=idx.report.cap, device=dev, ckpt=mgr)
+        raise AssertionError("directed resume: the run was not stopped")
+    except InjectedCrash as e:
+        require(e.site == "engine.commit",
+                f"directed resume: crashed at {e.site}")
+    mgr.wait()                 # the first commit's save, still in flight
+    require(mgr.all_steps() == [EXACT_BATCH],
+            f"directed resume: committed steps {mgr.all_steps()}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_build(g, rank, algo="directed", batch=EXACT_BATCH,
+                    cap=idx.report.cap, device=dev,
+                    ckpt=CheckpointManager(str(ckdir), keep=1), resume=True)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    resume_counts = path_launches(kernels, ("ell_relax",),
+                                  "directed resume")
+    require(res.resumed_from == EXACT_BATCH,
+            f"directed resume: resumed from {res.resumed_from}")
+    require(same_table(res.sink.table("out"), idx.l_out)
+            and same_table(res.sink.table("in"), idx.l_in),
+            "directed resume: tables != the uninterrupted build's")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"directed resume: a soft crash at the second engine.commit, "
+        f"resumed from root cursor {res.resumed_from} in {resume_s:.2f} s "
+        f"(a checkpoint of {g.n * idx.report.cap * 16:,} B of tables a "
+        f"commit, at the build's cap); out and in tables == the uninterrupted "
+        f"build's (torch.equal); launches {resume_counts}")
+    return {"launches": {k: counts[k] + resume_counts[k] for k in counts},
+            "wall": wall, "resume_s": resume_s}
+
+
+def phase_sharded_exactness(dev, kernels, exact, repair) -> dict:
+    """``build(store="sharded", shards=4)`` on phase 3's graph (PLaNT
+    streamed into the shards) equals ``ShardedStore.from_table`` of phase
+    3's dense table; save, then load as sharded, as dense and re-sharded
+    to K = 3, each equal to its re-homing; ``apply`` of the repair
+    phase's low-load batch on a sharded index equals the dense repair's
+    table re-homed to 4 shards."""
+    import numpy as np
+    import torch
+    from repro_torch.index import BuildPlan, CHLIndex, build
+    from repro_torch.index.store import ShardedStore
+    from repro_torch.kernels.label_query import KERNEL
+    g, rank = exact["graph"]
+    u, v, want = exact["queries"]
+    plan = BuildPlan(algo="plant", batch=EXACT_BATCH, store="sharded",
+                     shards=EXACT_SHARDS)
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = build(g, rank, plan, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rehomed = ShardedStore.from_table(exact["table"], rank, EXACT_SHARDS)
+    require(same_stores(idx.store, rehomed), "sharded exactness: streamed "
+            "shards != phase 3's table re-homed")
+    batch = 1024                             # queries a routed flush
+    srv = idx.serve(mode="qlsn", batch_size=batch)
+    before = KERNEL.launches
+    srv.submit(u, v)
+    served = srv.flush()
+    routed_launches = KERNEL.launches - before
+    u_d = torch.as_tensor(u, device=dev)
+    v_d = torch.as_tensor(v, device=dev)
+    before = KERNEL.launches
+    d, h = idx.store.query_device(u_d, v_d)
+    stacked_launches = KERNEL.launches - before
+    counts = path_launches(kernels, ("ell_relax", "label_query"),
+                           "sharded exactness")
+    batches = -(-len(u) // batch)
+    require(0 < routed_launches <= EXACT_SHARDS * batches,
+            f"sharded exactness: {routed_launches} launches for "
+            f"{batches} routed flushes of {EXACT_SHARDS} shards")
+    require(stacked_launches == EXACT_SHARDS,
+            f"sharded exactness: {stacked_launches} launches a stacked "
+            f"query")
+    require(np.array_equal(served, want),
+            "sharded exactness: routed serve != Dijkstra")
+    moved = check_stacked(idx.store, exact["table"], u_d, v_d, d, h,
+                          "sharded exactness")
+    scratch = ROOT / "build"                 # git-ignored, in the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = idx.save(os.path.join(tmp, "index"))
+        as_sharded = CHLIndex.load(path, rank=rank, device=dev)
+        as_dense = CHLIndex.load(path, store="dense", device=dev)
+        as_three = CHLIndex.load(path, store="sharded", shards=3, device=dev)
+    merged = idx.table
+    require(same_stores(as_sharded.store, idx.store),
+            "sharded exactness: loaded shards != built")
+    require(same_table(as_dense.table, merged),
+            "sharded exactness: dense load != the merged shards")
+    require(same_stores(as_three.store,
+                        ShardedStore.from_table(merged, rank, 3)),
+            "sharded exactness: K = 3 load != the re-sharded table")
+    for what, other in (("dense", as_dense), ("K=3", as_three)):
+        require(np.array_equal(other.query(u, v), want),
+                f"sharded exactness: {what} load's answers != Dijkstra")
+    low = repair["low-load"]
+    g0 = low["graph"]
+    rep_idx = build(g0, rank, plan, device=dev)
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = rep_idx.apply(low["batch"], graph=g0)
+    torch.cuda.synchronize()
+    repair_s = time.perf_counter() - t0
+    rep_counts = path_launches(kernels, ("ell_relax",), "sharded repair")
+    require(rep.store == "sharded" and same_stores(
+        rep_idx.store, ShardedStore.from_table(low["table"], rank,
+                                               EXACT_SHARDS)),
+            "sharded repair: shards != the dense repair's table re-homed")
+    log(f"sharded exactness n={g.n} K={EXACT_SHARDS}: streamed build "
+        f"{wall:.3f} s (PLaNT dense {exact['wall']:.3f} s), "
+        f"{idx.total_labels} labels in shards of "
+        f"{[int(c) for c in idx.store.count.sum(dim=1).tolist()]}; == "
+        f"phase 3's table re-homed; routed serve == Dijkstra "
+        f"({routed_launches} launches in {batches} flushes), stacked "
+        f"({stacked_launches} launches) "
+        f"dist == dense, hubs == the plain stacked rule and real "
+        f"witnesses ({moved} of {len(u)} differ from the dense store's "
+        f"first-slot hub on a tie); save -> load sharded / dense / K=3 each "
+        f"equal; repair of the low-load batch: affected {rep.affected}, "
+        f"{repair_s:.3f} s, shards == the dense repair re-homed; "
+        f"launches {counts} + repair {rep_counts}")
+    return {"launches": {k: counts[k] + rep_counts[k] for k in counts},
+            "wall": wall}
+
+
+def check_stacked(store, table, u, v, d, h, what) -> int:
+    """A sharded store's stacked answers ``(d, h)`` on the card against
+    the plain version of the same rule (the plain query per shard, then
+    the least distance over the shards, the lowest shard on a tie, as
+    the reference's argmin) and against the dense table: equal
+    distances, and every hub a real witness (in both rows, at the
+    answer's distance). Returns how many hubs differ from the dense
+    store's, which takes the first attaining slot of the merged row
+    instead: the two rules part only where several hubs attain the
+    minimum. Its dense query launches the kernel: call it after the
+    path's launches are read."""
+    import torch
+    from repro_torch.index.store import DenseStore
+    parts = [query_pairs_in_chunks(store.shard_table(k), u, v)
+             for k in range(store.num_shards)]
+    best, k = torch.min(torch.stack([p[0] for p in parts]), dim=0)
+    hub = torch.gather(torch.stack([p[1] for p in parts]), 0, k[None])[0]
+    hub = torch.where(torch.isfinite(best), hub, -1)
+    require(torch.equal(d, best) and torch.equal(h, hub),
+            f"{what}: stacked (dist, hub) != its plain version")
+    dd, dh = DenseStore(table).query_device(u, v)
+    require(torch.equal(d, dd), f"{what}: stacked dist != dense")
+
+    def at(ids):
+        rows = table.hubs[ids] == h[:, None]
+        return torch.where(rows, table.dist[ids], torch.inf).amin(dim=1)
+
+    fin = torch.isfinite(d)
+    require(torch.equal((at(u) + at(v))[fin], d[fin])
+            and bool((h[~fin] == -1).all()),
+            f"{what}: a stacked hub is not a witness")
+    return int((h != dh).sum())
+
+
+def same_stores(a, b) -> bool:
+    """Shard by shard, hubs, dist and count equal."""
+    import numpy as np
+    sa, sb = list(a.shard_arrays()), list(b.shard_arrays())
+    return len(sa) == len(sb) and all(
+        np.array_equal(x[key], y[key]) for (_, x), (_, y) in zip(sa, sb)
+        for key in ("hubs", "dist", "count"))
+
+
+def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
+    """Phase 5's road superstep (same roots, batch and graph) streamed
+    into ROAD_SHARDS hub shards through ``StreamingShardSink``: the
+    shards equal ``hub_partition_arrays`` of phase 5's dense table; a
+    ``ShardedStore`` on the card answers phase 5's SERVE_Q pairs stacked
+    (K launches and one cross-shard minimum: dist and hub) and routed,
+    each equal to the dense store. Logs the host insert time, the
+    accumulator's bytes and the stacked query's device time beside
+    ``query_table``'s on the same pairs."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import PlantPolicy, StreamingShardSink, run
+    from repro_torch.index.store import DenseStore, ShardedStore
+    from repro_torch.kernels.label_query import KERNEL
+    from repro_torch.parallel import hub_partition_arrays
+    from repro_torch.serve import RoutedAnswer
+
+    class TimedSink(StreamingShardSink):
+        insert_s = 0.0
+
+        def insert(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().insert(*a, **kw)
+            self.insert_s += time.perf_counter() - t0
+
+    reset(kernels)
+    policy = PlantPolicy(g, rank, batch=ROAD_BATCH, device=dev,
+                         roots_order=road["roots"])
+    sink = TimedSink(g.n, rank, ROAD_SHARDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(policy, sink)
+    wall = time.perf_counter() - t0
+    acc = sink.acc
+    acc_bytes = sum(a.nbytes for a in acc.hubs + acc.dist) + acc.count.nbytes
+    del policy
+    t1 = time.perf_counter()
+    store = ShardedStore.from_accumulator(acc, device=dev)
+    adopt_s = time.perf_counter() - t1
+    table = road["table"]
+    t1 = time.perf_counter()
+    want = hub_partition_arrays(table.hubs.cpu().numpy(),
+                                table.dist.cpu().numpy(), rank, ROAD_SHARDS)
+    part_s = time.perf_counter() - t1
+    require(all(np.array_equal(x.cpu().numpy(), y) for x, y in
+                zip((store.hubs, store.dist, store.count), want)),
+            "sharded road: streamed shards != hub_partition_arrays of "
+            "phase 5's table")
+    per_shard = [int(x) for x in store.count.sum(dim=1).tolist()]
+    widest = [int(x) for x in store.count.max(dim=1).values.tolist()]
+    insert_s, commits = sink.insert_s, len(res.records)
+    del sink, acc, want
+    u = torch.as_tensor(road["u"], device=dev)
+    v = torch.as_tensor(road["v"], device=dev)
+    before = KERNEL.launches
+    d, h = store.query_device(u, v)
+    stacked_launches = KERNEL.launches - before
+    routed = RoutedAnswer(store)
+    before = KERNEL.launches
+    rd = routed(road["u"], road["v"])
+    routed_launches = KERNEL.launches - before
+    counts = path_launches(kernels, ("ell_relax_windowed", "label_query"),
+                           "sharded road")
+    require(stacked_launches == ROAD_SHARDS,
+            f"sharded road: {stacked_launches} launches a stacked query")
+    require(0 < routed_launches <= ROAD_SHARDS,
+            f"sharded road: {routed_launches} launches a routed query")
+    moved = check_stacked(store, table, u, v, d, h, "sharded road")
+    dense = DenseStore(table)
+    dd, _ = dense.query_device(u, v)
+    require(torch.equal(rd, dd), "sharded road: routed != dense")
+    sweeps = sum(r.sweeps for r in res.records)
+
+    def kernel_ms(fn, reps):
+        """(device ms a call of the label_query kernels alone, of all the
+        call's device work) from one profiler window."""
+        evs = device_events(fn, reps)
+        lq = [e for e in evs if DEVICE_NAMES["label_query"] in e.name]
+        return (covered(lq) / 1e3 / reps if lq else None,
+                covered(evs) / 1e3 / reps if evs else None)
+
+    stacked = kernel_ms(lambda: store.query_device(u, v), 50)
+    single = kernel_ms(lambda: dense.query_device(u, v), 50)
+    stacked_ev = time_ms(lambda: store.query_device(u, v), reps=50)
+    single_ev = time_ms(lambda: dense.query_device(u, v), reps=50)
+    routed_ev = time_ms(lambda: routed(road["u"], road["v"]), reps=10)
+    plain_ms = time_ms(lambda: [query_pairs_in_chunks(store.shard_table(k),
+                                                      u, v)
+                                for k in range(ROAD_SHARDS)],
+                       reps=3, warmup=1)
+    bnd, design = stacked_bound_ms(store, u, v)
+    log(f"sharded road n={g.n} K={ROAD_SHARDS}: streamed superstep "
+        f"{wall:.2f} s ({sweeps} sweeps; phase 5's dense superstep "
+        f"{road['wall']:.2f} s), host insert {insert_s:.2f} s for "
+        f"{commits} commits (planes fetched once a commit), "
+        f"accumulator {acc_bytes:,} B on the host; ShardedStore on the card "
+        f"{adopt_s:.2f} s, labels per shard {per_shard}, widest row per "
+        f"shard {widest}; shards == hub_partition_arrays of phase 5's "
+        f"table ({part_s:.1f} s); stacked and routed dist == dense, "
+        f"stacked hubs == the plain stacked rule and real witnesses "
+        f"({moved} of {SERVE_Q} differ from the dense store's first-slot "
+        f"hub on a tie); stacked {stacked_launches} launches, routed "
+        f"{routed_launches}; launches {counts}")
+    log(f"sharded road query ({SERVE_Q} pairs): stacked {ROAD_SHARDS} "
+        f"launches, kernels {fmt_ms(stacked[0])} + reduction = "
+        f"{fmt_ms(stacked[1])} device a call, events {stacked_ev:.4f} ms; "
+        f"query_table one launch {fmt_ms(single[0])} device, events "
+        f"{single_ev:.4f} ms; routed {routed_ev:.4f} ms (host routing "
+        f"table, K subsets); plain per shard {plain_ms:.4f} ms; bound of "
+        f"the function {bnd[0]:.4f} ms ({bnd[1]}), of the stacked design "
+        f"(ids re-read a launch, K partials written and read back) "
+        f"{design[0]:.4f} ms ({design[1]})")
+    return {"launches": counts, "stacked": {
+        "device_ms": stacked[0], "device_ms_all": stacked[1],
+        "ms": stacked_ev, "plain_ms": plain_ms, "bound_ms": bnd[0],
+        "bound_by": bnd[1], "design_bound_ms": design[0],
+        "launches_per_call": stacked_launches,
+        "routed_launches_per_call": routed_launches,
+        "query_table_device_ms": single[0], "routed_ms": routed_ev,
+        "insert_s": insert_s, "accumulator_bytes": acc_bytes}}
+
+
+def directed_graph():
+    from repro_torch.graphs import degree_ranking, random_connected
+    t0 = time.perf_counter()
+    g = random_connected(RANDOM_N, extra_edges=RANDOM_EXTRA, seed=0,
+                         directed=True)
+    rank = degree_ranking(g)
+    log(f"directed graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
+        f"set-up {time.perf_counter() - t0:.1f} s (two from_edges)")
+    return g, rank
+
+
+def phase_directed_scale(dev, kernels, g, rank) -> dict:
+    """The chl-scalefree configuration on a digraph: one cluster node's
+    RANDOM_TREES top-ranked roots through ``DirectedPlantPolicy`` (each
+    batch PLaNTed on G into ``L_in`` and on its reverse into ``L_out``,
+    both through the source-windowed sweep), then SERVE_Q queries
+    ``(h, v)`` and ``(v, h)`` for planted roots h, which the top roots'
+    labels answer exactly, served through ``serve(mode="qlsn")`` (one
+    two-table launch a flush), checked against scipy's Dijkstra from
+    two roots on G and on its transpose, and against the plain query."""
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    import repro_torch.engine.policies as policies
+    from repro_torch.core import labels as lbl
+    from repro_torch.engine import (BatchSchedule, DenseSink,
+                                    DirectedPlantPolicy, rank_order, run)
+    from repro_torch.index import BuildPlan, BuildReport, CHLIndex
+    from repro_torch.kernels.ell_relax import layout_plan
+    from repro_torch.kernels.label_query import KERNEL, label_query_ref
+
+    roots = rank_order(rank)[:RANDOM_TREES]
+    require(layout_plan(g.n, dev, bb=RANDOM_BATCH).num_windows > 1,
+            "directed scale: planes fit one window")
+    t0 = time.perf_counter()
+    policy = DirectedPlantPolicy(g, rank, batch=RANDOM_BATCH, device=dev)
+    policy.schedule = lambda: BatchSchedule(roots, RANDOM_BATCH)
+    setup_s = time.perf_counter() - t0
+    sweeps = []
+    plant = policies.plant_batch
+
+    def counted(*a, **kw):
+        tb = plant(*a, **kw)
+        sweeps.append(tb.sweeps)
+        return tb
+
+    reset(kernels)
+    policies.plant_batch = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(policy, DenseSink(g.n, RANDOM_CAP, dev,
+                                    channels=("out", "in")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        policies.plant_batch = plant
+    del policy
+    l_out, l_in = res.sink.table("out"), res.sink.table("in")
+    total = lbl.total_labels(l_out) + lbl.total_labels(l_in)
+    idx = CHLIndex(l_out=l_out, l_in=l_in,
+                   plan=BuildPlan(algo="directed", batch=RANDOM_BATCH,
+                                  cap=RANDOM_CAP),
+                   report=BuildReport(algo="directed", wall_s=wall,
+                                      total_labels=total,
+                                      als=total / (2 * g.n), cap=RANDOM_CAP,
+                                      supersteps=list(res.records)),
+                   rank=rank)
+    rng = np.random.default_rng(23)
+    half = SERVE_Q // 2
+    hs = roots[rng.integers(0, RANDOM_TREES, SERVE_Q)]
+    xs = rng.integers(0, g.n, SERVE_Q)
+    u = np.concatenate([hs[:half], xs[half:]])
+    v = np.concatenate([xs[:half], hs[half:]])
+    srv = idx.serve(mode="qlsn", batch_size=SERVE_Q)
+    before = KERNEL.launches
+    t0 = time.perf_counter()
+    srv.submit(u, v)
+    served = srv.flush()
+    serve_s = time.perf_counter() - t0
+    flush_launches = KERNEL.launches - before
+    require(flush_launches == 1, f"directed scale: {flush_launches} "
+            "label_query launches for one flush")
+    counts = path_launches(kernels, ("ell_relax_windowed", "label_query"),
+                           "directed scale")
+    require(counts["ell_relax"] == 0, "directed scale: the dense sweep ran")
+    require(bool(np.isfinite(served).all()),
+            "directed scale: a planted root's pair is unanswered")
+    ud = torch.as_tensor(u, device=dev)
+    vd = torch.as_tensor(v, device=dev)
+    pd, _ = label_query_ref(l_out.hubs[ud], l_out.dist[ud], l_in.hubs[vd],
+                            l_in.dist[vd])
+    require(np.array_equal(served, pd.cpu().numpy()),
+            "directed scale: served != plain query")
+    t0 = time.perf_counter()
+    A = _scipy_csr(g)
+    At = A.T.tocsr()
+    checked = 0
+    for r in roots[:2]:
+        fwd = dijkstra(A, indices=int(r)).astype(np.float32)     # d(r->x)
+        bwd = dijkstra(At, indices=int(r)).astype(np.float32)    # d(x->r)
+        sel = np.flatnonzero(u[:half] == r)
+        require(np.array_equal(served[sel], fwd[v[sel]]),
+                f"directed scale: d({r}->v) != Dijkstra on G")
+        sel2 = half + np.flatnonzero(v[half:] == r)
+        require(np.array_equal(served[sel2], bwd[u[sel2]]),
+                f"directed scale: d(u->{r}) != Dijkstra on the transpose")
+        checked += len(sel) + len(sel2)
+    oracle_s = time.perf_counter() - t0
+    fwd_sweeps, bwd_sweeps = sweeps[0::2], sweeps[1::2]
+    log(f"directed scale n={g.n}: set-up of the policy {setup_s:.1f} s "
+        f"(the reverse's from_edges, device arrays, two windowed layouts); "
+        f"{len(res.records)} supersteps x {RANDOM_BATCH} trees, sweeps on "
+        f"G {fwd_sweeps} and on the reverse {bwd_sweeps} (records "
+        f"{[r.sweeps for r in res.records]}), {total} labels, wall "
+        f"{wall:.2f} s (the undirected random superstep: see phase 6); "
+        f"launches {counts}")
+    log(f"directed scale serve: {SERVE_Q} queries (h, v) and (v, h) for "
+        f"planted h in one flush, {flush_launches} label_query launch, "
+        f"host wall {serve_s:.3f} s; == plain query; {checked} of them == "
+        f"scipy Dijkstra from 2 roots on G and its transpose "
+        f"({oracle_s:.1f} s)")
+    return {"launches": counts, "wall": wall, "sweeps": sweeps,
+            "l_out": l_out, "l_in": l_in, "u": ud, "v": vd}
+
+
+def time_query_pair(dev, what, l_out, l_in, u, v, reps=100) -> dict:
+    """The two-table form (a directed query: ``L_out[u]`` against
+    ``L_in[v]``) on one state, as `time_query_table` times the table
+    form: held equal to the plain version, then device, event and host
+    times, the plain version's ms and the bound from this run's
+    counts."""
+    import torch
+    from repro_torch.kernels.label_query import (KERNEL,
+                                                 label_query_pair_rows,
+                                                 label_query_ref)
+    call = lambda: label_query_pair_rows(l_out, l_in, u, v)  # noqa: E731
+    plain = lambda: label_query_ref(l_out.hubs[u], l_out.dist[u],  # noqa
+                                    l_in.hubs[v], l_in.dist[v])
+    kd, kh = call()
+    pd, ph = plain()
+    torch.cuda.synchronize()
+    require(torch.equal(kd, pd) and torch.equal(kh, ph),
+            f"label_query_pair_rows != plain at the {what} state")
+    err = max_abs_err(kd, pd)
+    before = KERNEL.launches
+    evs = device_events(call, reps)
+    launches = (KERNEL.launches - before - 1) / reps
+    lq = [e for e in evs if DEVICE_NAMES["label_query"] in e.name]
+    dms = covered(lq) / 1e3 / len(lq) if lq else None
+    ms = time_ms(call, reps=reps)
+    hus = host_us(call, reps)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    cu = l_out.count[u].double()
+    cv = l_in.count[v].double()
+    Q = u.shape[0]
+    bnd = bound(Q * (16 + 8 + 8) + 8 * float((cu + cv).sum()),
+                float((cu * cv).sum()))
+    log(f"time label_query (two-table form) at the {what} state (n="
+        f"{l_out.n}, L={l_out.cap}, Q={Q}): device {fmt_ms(dms)} per call "
+        f"in {launches:g} launch, events {ms:.4f} ms, host {hus:.1f} us, "
+        f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    require(launches == 1, f"two-table form: {launches} launches a call")
+    return {"device_ms": dms, "ms": ms, "host_us": hus, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "launches_per_call": launches, "max_abs_err": err}
+
 
 def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
     """The relaxation kernels, and their plain versions, on one mid-build
@@ -1813,7 +2416,11 @@ def main() -> int:
     add(exact["launches"])
     add(phase_shared_memory(dev, kernels, exact)["launches"])
     add(phase_crash_matrix(dev, kernels, exact)["launches"])
-    add(phase_repair(dev, kernels, exact)["launches"])
+    repair = phase_repair(dev, kernels, exact)
+    add(repair["launches"])
+    add(phase_directed_exactness(dev, kernels)["launches"])
+    add(phase_sharded_exactness(dev, kernels, exact, repair)["launches"])
+    del repair
     g, rank = exact["graph"]
     lq = {"exactness": time_query_table(
         dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
@@ -1861,7 +2468,11 @@ def main() -> int:
     trace_sweeps(dev, "road", g, rank, road["roots"], ROAD_BATCH)
     torch.cuda.empty_cache()
     add(phase_gll_road(dev, kernels, g, rank, road)["launches"])
-    del g, rank, road
+    torch.cuda.empty_cache()
+    sharded_road = phase_sharded_road(dev, kernels, g, rank, road)
+    add(sharded_road["launches"])
+    lq["stacked_road"] = sharded_road["stacked"]
+    del g, rank, road, sharded_road
     torch.cuda.empty_cache()
 
     g, rank = random_graph()
@@ -1874,7 +2485,17 @@ def main() -> int:
     rnd_relax = time_relax(dev, "random", g, rank, rnd["roots"],
                            RANDOM_BATCH, sweeps=8)
     trace_sweeps(dev, "random", g, rank, rnd["roots"], RANDOM_BATCH)
+    log(f"random superstep wall {rnd['wall']:.2f} s (beside the directed "
+        "one below)")
     del g, rank, rnd
+    torch.cuda.empty_cache()
+
+    g, rank = directed_graph()
+    drt = phase_directed_scale(dev, kernels, g, rank)
+    add(drt["launches"])
+    lq["pair_directed"] = time_query_pair(dev, "directed", drt["l_out"],
+                                          drt["l_in"], drt["u"], drt["v"])
+    del g, rank, drt
     torch.cuda.empty_cache()
 
     # the dense-vs-windowed comparison on the road and random states

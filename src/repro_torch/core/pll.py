@@ -3,15 +3,15 @@
 Host-side numpy/heapq implementation used as ground truth: for a given
 hierarchy R, sequential PLL outputs exactly the Canonical Hub Labeling,
 and every parallel algorithm is held to label-set equality with it.
-Undirected graphs; the directed pair of label sets needs
-``Graph.reverse`` and waits for the directed slice (ROADMAP Queue 1,
-item 8).
+A digraph gets the forward/backward pair (paper footnote 1):
+``pll_directed`` returns ``(L_out, L_in)``, queried over
+``L_out[u]`` and ``L_in[v]``.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -57,6 +57,45 @@ def pll_undirected(g: Graph, rank: np.ndarray) -> LabelSets:
     return labels
 
 
+def pll_directed(g: Graph, rank: np.ndarray
+                 ) -> Tuple[LabelSets, LabelSets]:
+    """``(L_out, L_in)``: per hub in rank-descending order, a pruned tree
+    on G (``d(h->v)``, into ``L_in``) and one on its reverse
+    (``d(v->h)``, into ``L_out``); query(u->v) is over
+    ``L_out[u]`` and ``L_in[v]``."""
+    gr = g.reverse()
+    l_out: LabelSets = [dict() for _ in range(g.n)]
+    l_in: LabelSets = [dict() for _ in range(g.n)]
+    order = np.argsort(-np.asarray(rank).astype(np.int64), kind="stable")
+
+    def tree(graph: Graph, h: int, own: LabelSets,
+             own_h: Dict[int, float]) -> None:
+        # visiting v at distance d is a path h->v in `graph`; it is
+        # pruned when the hubs of own_h and own[v] already answer d
+        dist = {h: 0.0}
+        pq = [(0.0, h)]
+        while pq:
+            d, v = heapq.heappop(pq)
+            if d > dist.get(v, np.inf):
+                continue
+            if _query(own_h, own[v]) <= d:
+                continue
+            own[v][h] = d
+            ids, w = graph.out_edges(v)
+            for u, wt in zip(ids.tolist(), w.tolist()):
+                nd = d + wt
+                if nd < dist.get(u, np.inf):
+                    dist[u] = nd
+                    heapq.heappush(pq, (nd, u))
+
+    for h in order.tolist():
+        # when h's trees run, L_out[h] and L_in[h] hold higher-ranked
+        # hubs only
+        tree(g, h, l_in, l_out[h])
+        tree(gr, h, l_out, l_in[h])
+    return l_out, l_in
+
+
 def chl_by_definition(g: Graph, rank: np.ndarray) -> LabelSets:
     """CHL straight from the definition (O(n^2): tiny graphs only): for
     every connected pair (u, v), the max-rank vertex over the union of
@@ -82,6 +121,11 @@ def chl_by_definition(g: Graph, rank: np.ndarray) -> LabelSets:
 
 def query_distance(labels: LabelSets, u: int, v: int) -> float:
     return _query(labels[u], labels[v])
+
+
+def query_distance_directed(l_out: LabelSets, l_in: LabelSets,
+                            u: int, v: int) -> float:
+    return _query(l_out[u], l_in[v])
 
 
 def average_label_size(labels: LabelSets) -> float:

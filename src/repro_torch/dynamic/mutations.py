@@ -190,8 +190,8 @@ class MutationBatch:
         and capturing old weights."""
         if g.directed:
             raise NotImplementedError(
-                "dynamic repair of directed graphs is not ported yet "
-                "(ROADMAP Queue 1, item 8); it supports undirected graphs")
+                "dynamic repair currently supports undirected graphs "
+                "(directed repair is a ROADMAP item)")
         edges = _edge_dict(g)
         M = len(self.mutations)
         u = np.empty(M, np.int64)

@@ -25,8 +25,10 @@ Checkpoint safety: ``RepairPolicy.kind == "repair"``; the engine
 stamps the kind into every checkpoint and refuses to restore across
 kinds, so a repair resume never adopts a build's label state.
 
-This slice repairs dense stores of undirected graphs; a sharded store
-(ROADMAP Queue 1, item 9) and a directed graph (item 8) raise.
+A sharded store re-plants into a `StreamingShardSink` and merges shard
+by shard (each shard's rows canonicalised the same way, at their tight
+cap), so the result equals a sharded rebuild. A directed index is
+refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ from repro_torch.engine.policies import PlantPolicy
 from repro_torch.engine.records import SuperstepRecord
 from repro_torch.engine.runner import run
 from repro_torch.engine.scheduler import rank_order
-from repro_torch.engine.sink import DenseSink
+from repro_torch.engine.sink import DenseSink, StreamingShardSink
 from repro_torch.ft.inject import fault_site
-from repro_torch.index.store import DenseStore
+from repro_torch.index.store import DenseStore, ShardedStore
 
 from .frontier import affected_hubs
 from .mutations import MutationBatch
@@ -77,8 +79,8 @@ class RepairReport:
     repaired: int                    # labels re-emitted
     total_labels: int                # post-repair index size
     als: float
-    cap: Optional[int]               # dense cap after repair
-    store: str                       # "dense"
+    cap: Optional[int]               # dense cap after repair (None: sharded)
+    store: str                       # "dense" | "sharded"
     supersteps: List[SuperstepRecord] = dataclasses.field(
         default_factory=list)
     resumed_from: Optional[int] = None
@@ -117,10 +119,11 @@ def _order_index(rank: np.ndarray) -> np.ndarray:
 
 
 def _canonical_rows(hubs: np.ndarray, dist: np.ndarray, oi: np.ndarray,
-                    cap: int):
+                    cap: Optional[int] = None):
     """Sort each row's valid labels into ascending order index (the
     order a from-scratch schedule inserts them), compact the invalid
-    slots to the tail, and trim/pad to ``cap``."""
+    slots to the tail, and trim/pad to ``cap`` (default: the tight
+    cap)."""
     valid = hubs >= 0
     key = np.where(valid, oi[np.where(valid, hubs, 0)],
                    np.iinfo(np.int64).max)
@@ -129,6 +132,7 @@ def _canonical_rows(hubs: np.ndarray, dist: np.ndarray, oi: np.ndarray,
     dist = np.take_along_axis(dist, order, axis=1)
     count = valid.sum(axis=1).astype(np.int32)
     tight = int(max(1, count.max())) if count.size else 1
+    cap = tight if cap is None else int(cap)
     if cap < tight:
         raise ValueError(f"cap {cap} below tight row max {tight}")
     pad = cap - hubs.shape[1]
@@ -166,14 +170,14 @@ def repair_index(idx, batch: MutationBatch, g, *, ckpt=None,
     rebuild; returns the :class:`RepairReport`. The frontier and the
     re-plant run on the store's device. ``ckpt``/``resume`` thread into
     ``engine.run`` under ``kind="repair"``."""
-    if g.directed:
+    if idx.directed:
         raise NotImplementedError(
-            "apply() for a directed graph is not ported yet (ROADMAP "
-            "Queue 1, item 8); it repairs undirected dense indices")
-    if idx.store.kind != "dense":
+            "apply() currently supports undirected indices")
+    if idx.store.kind not in ("dense", "sharded"):
         raise NotImplementedError(
-            f"apply() on a {idx.store.kind!r} store is not ported yet "
-            "(ROADMAP Queue 1, item 9); it repairs dense stores")
+            f"apply() needs a writable dense or sharded store (got "
+            f"{idx.store.kind!r}); spill and compressed stores are not "
+            "ported yet (ROADMAP Queue 1, item 9)")
     if g.n != idx.n:
         raise ValueError(f"graph has n={g.n} but the index has n={idx.n}")
 
@@ -192,12 +196,21 @@ def repair_index(idx, batch: MutationBatch, g, *, ckpt=None,
               f"{len(batch.touched())} vertices; {len(roots)} trees "
               f"affected")
 
-    old = idx.store.to_table()
     records: List[SuperstepRecord] = []
     resumed_from: Optional[int] = None
     rep_table = None
-    if len(roots):
-        cap_r = old.cap
+    repaired = 0
+    sharded = idx.store.kind == "sharded"
+    if len(roots) and sharded:
+        policy = RepairPolicy(g_new, idx.rank, batch=idx.plan.batch,
+                              device=dev, roots_order=roots)
+        sink = StreamingShardSink(idx.n, idx.rank, idx.store.num_shards)
+        res = run(policy, sink, ckpt=ckpt, resume=resume, verbose=verbose)
+        records, resumed_from = res.records, res.resumed_from
+        repaired = sink.total_labels
+        rep_table = dict(sink.shard_arrays())
+    elif len(roots):
+        cap_r = idx.store.to_table().cap
         attempt = 0
         while True:
             policy = RepairPolicy(g_new, idx.rank, batch=idx.plan.batch,
@@ -220,29 +233,47 @@ def repair_index(idx, batch: MutationBatch, g, *, ckpt=None,
                 attempt += 1
         records, resumed_from = res.records, res.resumed_from
         rep_table = res.sink.table()
-    repaired = (0 if rep_table is None
-                else int(rep_table.count.sum()))
+        repaired = int(rep_table.count.sum())
 
     # the point of no return for the in-memory store: past here the
     # merge swaps idx.store; before here a crash leaves the index
     # untouched (the on-disk artifact is untouched either way: only an
     # explicit save() publishes the merge)
     fault_site("repair.merge")
-    hubs, dist, invalidated = _drop_affected(
-        old.hubs.cpu().numpy(), old.dist.cpu().numpy(), affected_mask)
-    if rep_table is not None:
-        hubs = np.concatenate([hubs, rep_table.hubs.cpu().numpy()], axis=1)
-        dist = np.concatenate([dist, rep_table.dist.cpu().numpy()], axis=1)
-    counts = (hubs >= 0).sum(axis=1)
-    tight = int(max(1, counts.max())) if counts.size else 1
-    # keep the old cap when the repaired rows still fit (padding then
-    # equals a rebuild's at the same cap); grow like `build` otherwise
-    new_cap = old.cap
-    while new_cap < tight:
-        new_cap = min(max(new_cap + 1, int(new_cap * idx.plan.cap_growth)),
-                      idx.n)
-    h, d, c = _canonical_rows(hubs, dist, oi, new_cap)
-    idx.store = DenseStore(interop.label_table(h, d, c, dev))
+    invalidated = 0
+    if sharded:
+        merged = []
+        for k, arrs in idx.store.shard_arrays():
+            hubs, dist, dropped = _drop_affected(arrs["hubs"], arrs["dist"],
+                                                 affected_mask)
+            invalidated += dropped
+            if rep_table is not None:
+                hubs = np.concatenate([hubs, rep_table[k]["hubs"]], axis=1)
+                dist = np.concatenate([dist, rep_table[k]["dist"]], axis=1)
+            h, d, c = _canonical_rows(hubs, dist, oi)
+            merged.append({"hubs": h, "dist": d, "count": c})
+        idx.store = ShardedStore.from_shard_arrays(merged, device=dev)
+        new_cap = None
+    else:
+        old = idx.store.to_table()
+        hubs, dist, invalidated = _drop_affected(
+            old.hubs.cpu().numpy(), old.dist.cpu().numpy(), affected_mask)
+        if rep_table is not None:
+            hubs = np.concatenate([hubs, rep_table.hubs.cpu().numpy()],
+                                  axis=1)
+            dist = np.concatenate([dist, rep_table.dist.cpu().numpy()],
+                                  axis=1)
+        counts = (hubs >= 0).sum(axis=1)
+        tight = int(max(1, counts.max())) if counts.size else 1
+        # keep the old cap when the repaired rows still fit (padding
+        # then equals a rebuild's at the same cap); grow like `build`
+        # otherwise
+        new_cap = old.cap
+        while new_cap < tight:
+            new_cap = min(max(new_cap + 1,
+                              int(new_cap * idx.plan.cap_growth)), idx.n)
+        h, d, c = _canonical_rows(hubs, dist, oi, new_cap)
+        idx.store = DenseStore(interop.label_table(h, d, c, dev))
 
     total = idx.store.total_labels
     return RepairReport(

@@ -167,6 +167,56 @@ class PlantPolicy(Policy):
                            trees=int(st.valid.sum()))
 
 
+class DirectedPlantPolicy(Policy):
+    """Paper footnote 1's digraph labeling: per batch, one PLaNTed tree
+    on G (``d(h->v)``, into ``"in"``) and one on its reverse
+    (``d(v->h)``, into ``"out"``), each sweeping with its own layout."""
+
+    name = "directed"
+
+    def __init__(self, g, rank: np.ndarray, *, batch: int, device):
+        if not g.directed:
+            raise ValueError("DirectedPlantPolicy needs a directed graph")
+        self.g, self.rank = g, rank
+        self.batch = int(batch)
+        self.order = rank_order(rank)
+        self.fwd = device_arrays(g, rank, device)
+        self.device = self.fwd.ell_src.device
+        self.bwd = device_arrays(g.reverse(), rank, self.device)
+        self.fwd_layout = ell_layout(self.fwd.ell_src, self.fwd.ell_w,
+                                     batch=self.batch)
+        self.bwd_layout = ell_layout(self.bwd.ell_src, self.bwd.ell_w,
+                                     batch=self.batch)
+
+    @functools.cached_property
+    def fingerprint(self) -> str:
+        return build_fingerprint(self.g, self.rank)
+
+    def config(self) -> dict:
+        return {"batch": self.batch}
+
+    def schedule(self) -> BatchSchedule:
+        return BatchSchedule(self.order, self.batch)
+
+    def step(self, st: Step, sink) -> StepOutcome:
+        r = torch.as_tensor(st.roots, device=self.device)
+        v = torch.as_tensor(st.valid, device=self.device)
+        f, b = self.fwd, self.bwd
+        tb_f = plant_batch(f.ell_src, f.ell_w, f.rank, r, v,
+                           layout=self.fwd_layout)
+        sink.insert(r, tb_f.emit, tb_f.dist, channel="in")
+        tb_b = plant_batch(b.ell_src, b.ell_w, b.rank, r, v,
+                           layout=self.bwd_layout)
+        sink.insert(r, tb_b.emit, tb_b.dist, channel="out")
+        stats = pack_stats(
+            tb_f.emit.sum(dtype=torch.int32)
+            + tb_b.emit.sum(dtype=torch.int32),
+            ((tb_f.explored + tb_b.explored) * v).sum(dtype=torch.int32),
+            max(tb_f.sweeps, tb_b.sweeps), device=self.device)
+        return StepOutcome(mode=self.name, stats=stats,
+                           trees=int(st.valid.sum()))
+
+
 class GLLPolicy(Policy):
     """Optimistic construction + interleaved DQ_Clean (§4).
 

@@ -222,17 +222,20 @@ def run(policy: Policy, sink, *, ckpt=None, resume: bool = False,
 
 #: algorithms this port builds; the rest of the reference's list is
 #: still to port (ROADMAP Queue 1)
-PORTED_ALGOS = ("plant", "pll-ref", "gll", "lcc", "parapll")
+PORTED_ALGOS = ("plant", "pll-ref", "gll", "lcc", "parapll", "directed")
+
+#: algorithms whose emissions are final on arrival and independent of
+#: any global table: the ones that stream into shard arrays without
+#: ever holding the dense [n, cap] table
+STREAMING_ALGOS = ("plant", "pll-ref")
 
 
 def unported_algo(algo: str) -> NotImplementedError:
-    """The refusal for an algorithm this port does not build yet,
-    citing the ROADMAP item that ports it."""
-    item = ("item 8, the directed half" if algo == "directed"
-            else "item 11, distributed")
+    """The refusal for an algorithm this port does not build yet (the
+    distributed ones), citing the ROADMAP item that ports it."""
     return NotImplementedError(
-        f"algo={algo!r} is not ported yet (ROADMAP Queue 1, {item}); "
-        f"this port builds {', '.join(PORTED_ALGOS)}")
+        f"algo={algo!r} is not ported yet (ROADMAP Queue 1, item 11, "
+        f"distributed); this port builds {', '.join(PORTED_ALGOS)}")
 
 
 def run_build(g, rank: np.ndarray, *, algo: str, batch: int = 8,
@@ -240,30 +243,44 @@ def run_build(g, rank: np.ndarray, *, algo: str, batch: int = 8,
               rank_queries: bool = True, clean: bool = True,
               plant_first_superstep: bool = False,
               roots_order: Optional[np.ndarray] = None,
+              streaming_shards: Optional[int] = None,
               device: DeviceLike = None, ckpt=None, resume: bool = False,
               verbose: bool = False) -> EngineResult:
     """Construct labels for ``algo`` through the engine on ``device``
     (default: the card). ``lcc`` forces ``alpha=None``; ``parapll``
-    also turns rank queries and cleaning off. ``roots_order`` applies
-    to ``plant`` only. ``ckpt`` checkpoints every committed superstep;
-    ``resume`` continues from the newest compatible one."""
+    also turns rank queries and cleaning off; ``directed`` fills the
+    sink's ``"out"`` and ``"in"`` channels. ``roots_order`` applies to
+    ``plant`` only. ``streaming_shards=K`` (`STREAMING_ALGOS` only)
+    swaps the dense sink for the hub-partitioned streaming sink.
+    ``ckpt`` checkpoints every committed superstep; ``resume``
+    continues from the newest compatible one."""
     from repro_torch.core import labels as lbl
-    from repro_torch.engine.policies import (GLLPolicy, PlantPolicy,
-                                             PLLRefPolicy)
-    from repro_torch.engine.sink import DenseSink
+    from repro_torch.engine.policies import (DirectedPlantPolicy, GLLPolicy,
+                                             PlantPolicy, PLLRefPolicy)
+    from repro_torch.engine.sink import DenseSink, StreamingShardSink
 
     if algo not in PORTED_ALGOS:
         raise unported_algo(algo)
     if roots_order is not None and algo != "plant":
         raise ValueError(f"roots_order applies to algo='plant', not "
                          f"{algo!r}")
+    if streaming_shards is not None and algo not in STREAMING_ALGOS:
+        raise ValueError(
+            f"streaming sharded builds support {STREAMING_ALGOS} "
+            f"(algo={algo!r} needs its dense global table during "
+            "construction)")
     dev = resolve_device(device)
-    cap = cap or lbl.default_cap(g.n)
+    n = g.n
+    cap = cap or lbl.default_cap(n)
+    channels = ("labels",)
     if algo == "plant":
         policy = PlantPolicy(g, rank, batch=batch, device=dev,
                              roots_order=roots_order)
     elif algo == "pll-ref":
         policy = PLLRefPolicy(g, rank, batch=batch, device=dev)
+    elif algo == "directed":
+        policy = DirectedPlantPolicy(g, rank, batch=batch, device=dev)
+        channels = ("out", "in")
     else:
         if algo == "lcc":
             alpha = None
@@ -274,5 +291,7 @@ def run_build(g, rank: np.ndarray, *, algo: str, batch: int = 8,
                            clean=clean,
                            plant_first_superstep=plant_first_superstep,
                            mode_name=algo)
-    return run(policy, DenseSink(g.n, cap, dev), ckpt=ckpt, resume=resume,
-               verbose=verbose)
+    sink = (StreamingShardSink(n, rank, streaming_shards)
+            if streaming_shards else
+            DenseSink(n, cap, dev, channels=channels))
+    return run(policy, sink, ckpt=ckpt, resume=resume, verbose=verbose)

@@ -1,27 +1,34 @@
-"""Emission sink — where a policy's committed labels land.
+"""Emission sinks — where a policy's committed labels land.
 
-:class:`DenseSink` holds one padded ``LabelTable`` on the build's
-device. Overflow accumulates on the device and is read at commit points
-(every commit for an ``eager_stats`` policy or a checkpointed run, else
-once at the end of the run), so the dispatch never waits on it
-mid-superstep.
+- :class:`DenseSink` holds one padded ``LabelTable`` per channel on the
+  build's device (undirected builds: ``"labels"``; directed builds:
+  ``"out"`` and ``"in"``). Overflow, shared by the channels,
+  accumulates on the device and is read at commit points (every commit
+  for an ``eager_stats`` policy or a checkpointed run, else once at the
+  end of the run), so the dispatch never waits on it mid-superstep.
+- :class:`StreamingShardSink` hub-partitions each commit's emissions
+  straight into per-shard host arrays
+  (`repro_torch.parallel.ShardAccumulator`): the dense ``[n, cap]``
+  table never exists, per-shard caps regrow independently and overflow
+  cannot happen.
 
-The sink also carries the checkpoint protocol (``meta`` /
-``state_arrays`` / ``load_state``), with the reference's keys and
-metadata, which is how every algorithm checkpoints and resumes.
+Both carry the checkpoint protocol (``meta`` / ``state_arrays`` /
+``load_state``) with the reference's keys and metadata, which is how
+every algorithm checkpoints and resumes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelOverflowError, LabelTable
+from repro_torch.parallel.sharding import ShardAccumulator
 
-#: the one channel of an undirected build (directed builds, ROADMAP
-#: item 8, add "out"/"in")
+#: the one channel of an undirected build
 CHANNEL = "labels"
 
 
@@ -41,20 +48,26 @@ def _pad_table_arrays(hubs: torch.Tensor, dist: torch.Tensor,
 
 
 class DenseSink:
-    """One dense ``LabelTable``."""
+    """One dense ``LabelTable`` per channel."""
 
     kind = "dense"
 
-    def __init__(self, n: int, cap: int, device):
+    def __init__(self, n: int, cap: int, device,
+                 channels: Sequence[str] = (CHANNEL,)):
         self.n = int(n)
         self.cap = int(cap)
         self.device = torch.device(device)
-        self._table = lbl.empty(self.n, self.cap, self.device)
+        self.channels = tuple(channels)
+        self._tables: Dict[str, LabelTable] = {
+            ch: lbl.empty(self.n, self.cap, self.device)
+            for ch in self.channels}
         self._ovf = torch.zeros((), dtype=torch.bool, device=self.device)
 
     def insert(self, roots: torch.Tensor, emit: torch.Tensor,
-               dist: torch.Tensor) -> None:
-        self._table, ovf = lbl.insert_batch(self._table, roots, emit, dist)
+               dist: torch.Tensor, channel: Optional[str] = None) -> None:
+        ch = channel or self.channels[0]
+        self._tables[ch], ovf = lbl.insert_batch(self._tables[ch], roots,
+                                                 emit, dist)
         self._ovf |= ovf
 
     def note_overflow(self, flag: torch.Tensor) -> None:
@@ -62,8 +75,8 @@ class DenseSink:
         local table)."""
         self._ovf |= flag
 
-    def table(self) -> LabelTable:
-        return self._table
+    def table(self, channel: Optional[str] = None) -> LabelTable:
+        return self._tables[channel or self.channels[0]]
 
     def overflowed(self) -> bool:
         return bool(self._ovf)          # one host sync
@@ -76,22 +89,84 @@ class DenseSink:
 
     def meta(self) -> dict:
         return {"kind": self.kind, "cap": self.cap, "n": self.n,
-                "channels": [CHANNEL]}
+                "channels": list(self.channels)}
 
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        """The table's tensors, on the sink's device; the checkpoint
+        """Each channel's tensors, on the sink's device; the checkpoint
         manager copies them to the host before it writes."""
-        t = self._table
-        return {f"{CHANNEL}_hubs": t.hubs, f"{CHANNEL}_dist": t.dist,
-                f"{CHANNEL}_count": t.count}
+        out: Dict[str, torch.Tensor] = {}
+        for ch, t in self._tables.items():
+            out[f"{ch}_hubs"] = t.hubs
+            out[f"{ch}_dist"] = t.dist
+            out[f"{ch}_count"] = t.count
+        return out
 
     def load_state(self, arrays) -> None:
         """Adopt restored arrays (tensors or numpy), padded to this
         sink's cap."""
         def get(key, dtype):
-            return torch.as_tensor(arrays[f"{CHANNEL}_{key}"], dtype=dtype,
+            return torch.as_tensor(arrays[key], dtype=dtype,
                                    device=self.device)
-        hubs, dist = _pad_table_arrays(get("hubs", torch.int32),
-                                       get("dist", torch.float32), self.cap)
-        self._table = LabelTable(hubs.contiguous(), dist.contiguous(),
-                                 get("count", torch.int32))
+        for ch in self.channels:
+            hubs, dist = _pad_table_arrays(get(f"{ch}_hubs", torch.int32),
+                                           get(f"{ch}_dist", torch.float32),
+                                           self.cap)
+            self._tables[ch] = LabelTable(hubs.contiguous(),
+                                          dist.contiguous(),
+                                          get(f"{ch}_count", torch.int32))
+
+
+class StreamingShardSink:
+    """Hub-partitioned streaming residency: never a dense table.
+
+    Each insert fetches its emission planes to the host once and appends
+    every tree's labels to its hub's shard. Per-shard caps regrow
+    geometrically, so there is no ``LabelOverflowError`` on this path.
+    """
+
+    kind = "sharded"
+
+    def __init__(self, n: int, rank: np.ndarray, num_shards: int):
+        self.n = int(n)
+        self.cap = None                 # no fixed cap on this path
+        self.acc = ShardAccumulator(n, rank, num_shards)
+        self.num_shards = self.acc.num_shards
+
+    def insert(self, roots: torch.Tensor, emit: torch.Tensor,
+               dist: torch.Tensor, channel: Optional[str] = None) -> None:
+        """Padding trees emit nothing (the policies mask them), so every
+        row is taken as valid."""
+        if channel not in (None, CHANNEL):
+            raise ValueError(f"a sharded sink has one channel, not "
+                             f"{channel!r}")
+        roots_h = roots.cpu().numpy()
+        self.acc.insert(roots_h, np.ones(len(roots_h), bool),
+                        emit.cpu().numpy(), dist.cpu().numpy())
+
+    def note_overflow(self, flag) -> None:
+        del flag                        # shard caps regrow; nothing to do
+
+    def overflowed(self) -> bool:
+        return False
+
+    def raise_on_overflow(self) -> None:
+        return None
+
+    def shard_arrays(self):
+        return self.acc.shard_arrays()
+
+    @property
+    def total_labels(self) -> int:
+        return self.acc.total_labels
+
+    # --------------------------------------------- checkpoint payload
+
+    def meta(self) -> dict:
+        return {"kind": self.kind, "cap": None, "n": self.n,
+                "shards": self.num_shards}
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        return self.acc.state_arrays()
+
+    def load_state(self, arrays) -> None:
+        self.acc.load_state(arrays)

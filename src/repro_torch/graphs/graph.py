@@ -56,6 +56,16 @@ class Graph:
         lo, hi = self.indptr[v], self.indptr[v + 1]
         return self.indices[lo:hi], self.weights[lo:hi]
 
+    def reverse(self) -> "Graph":
+        """The graph with every arc reversed (the backward labels of a
+        digraph); an undirected graph is its own reverse."""
+        if not self.directed:
+            return self
+        src = np.repeat(np.arange(self.n, dtype=np.int32),
+                        np.diff(self.indptr).astype(np.int64))
+        return from_edges(self.n, self.indices, src, self.weights,
+                          directed=True)
+
 
 def _build_ell(n: int, heads: np.ndarray, tails: np.ndarray,
                w: np.ndarray, pad_to_multiple: int = 8

@@ -7,6 +7,8 @@
     idx.serve(mode="qlsn")
     idx.save("run/index")
     idx = CHLIndex.load("run/index")
+    build(g, rank, BuildPlan(algo="plant", store="sharded", shards=4))
+    build(digraph, rank, BuildPlan(algo="directed"))  # L_out / L_in
 """
 
 from repro_torch.index.artifact import CHLIndex, rank_hash
@@ -14,9 +16,9 @@ from repro_torch.index.build import build
 from repro_torch.index.plan import ALGOS, DISTRIBUTED_ALGOS, BuildPlan
 from repro_torch.index.report import BuildReport, OverflowEvent, SuperstepStat
 from repro_torch.index.store import (CorruptArtifactError, DenseStore,
-                                     LabelStore)
+                                     LabelStore, ShardedStore)
 
 __all__ = ["ALGOS", "BuildPlan", "BuildReport", "CHLIndex",
            "CorruptArtifactError", "DISTRIBUTED_ALGOS", "DenseStore",
-           "LabelStore", "OverflowEvent", "SuperstepStat", "build",
-           "rank_hash"]
+           "LabelStore", "OverflowEvent", "ShardedStore", "SuperstepStat",
+           "build", "rank_hash"]

@@ -1,7 +1,9 @@
 """`CHLIndex` — the queryable, servable, persistable CHL artifact.
 
-One object owns the outcome of a build: a label store, the plan that
-produced it, the build report and the vertex hierarchy::
+One object owns the outcome of a build: a label store (dense or
+hub-sharded; a directed index holds the dense ``L_out``/``L_in`` pair
+instead), the plan that produced it, the build report and the vertex
+hierarchy::
 
     idx = build(g, rank, BuildPlan(algo="plant"))
     idx.query(u, v)                  # batched PPSD distances
@@ -16,19 +18,22 @@ move between the two packages both ways::
     <dir>/manifest.json   {"format": "repro.index/chl", "version": 3,
                            "plan", "report", "rank_hash", "directed",
                            "n", "total_labels", "als",
-                           "store": {"kind", "shards", "shard_labels",
+                           "store": {"kind": "dense" | "sharded",
+                                     "shards", "shard_labels",
                                      "shard_sha256"}}
     <dir>/rank.npy        the vertex hierarchy
-    <dir>/shard_<k>.npz   hubs/dist/count of label shard k
+    <dir>/shard_<k>.npz   hubs/dist/count of label shard k (a directed
+                          index: out_*/in_* of its one shard)
 
-Loads verify every shard file against its recorded sha256, the
-per-shard label counts and the rank hash. Writes go through a tmp dir
+Loads verify every shard file against its recorded sha256 (unless
+``verify=False``), the per-shard label counts and the rank hash, and
+``load(store=, shards=)`` re-homes: ``"dense"`` merges the shards,
+``"sharded"`` (re-)partitions by hub rank. Writes go through a tmp dir
 and ``os.replace``: an overwrite never deletes the live artifact before
 the replacement is staged; shard writes retry transient I/O and pass
 the ``artifact.save.shard`` / ``artifact.save.commit`` fault sites, shard
-reads ``artifact.load.shard``. This slice saves and loads dense
-artifacts; sharded, spill and compressed residency and the v1/v2
-formats are still to port.
+reads ``artifact.load.shard``. Spill and compressed residency (ROADMAP
+Queue 1, item 9) and the v1/v2 formats (item 6) are still to port.
 """
 
 from __future__ import annotations
@@ -44,12 +49,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch import interop
+from repro_torch.core import labels as lbl
+from repro_torch.core.labels import LabelTable
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.inject import fault_site, with_retries
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport
-from repro_torch.index.store import (CorruptArtifactError, DenseStore,
-                                     LabelStore, shard_filename)
+from repro_torch.index.store import (LOAD_STORE_KINDS, CorruptArtifactError,
+                                     DenseStore, LabelStore, ShardedStore,
+                                     shard_filename)
+from repro_torch.index.store.dense import as_index
 from repro_torch.serve import backends
 from repro_torch.serve.service import QueryService
 
@@ -76,37 +85,64 @@ def file_sha256(path: str, chunk: int = 1 << 20) -> str:
 
 
 class CHLIndex:
-    """A built Canonical Hub Labeling, packaged for serving."""
+    """A built Canonical Hub Labeling, packaged for serving.
 
-    def __init__(self, store: LabelStore, *, plan: BuildPlan,
-                 report: BuildReport, rank: np.ndarray):
+    ``store`` (a :class:`~repro_torch.index.store.LabelStore`) holds the
+    labels of an undirected graph; ``l_out``/``l_in`` those of a
+    directed one (paper footnote 1's forward/backward labels, dense
+    tables on one device)."""
+
+    def __init__(self, store: Optional[LabelStore] = None, *,
+                 l_out: Optional[LabelTable] = None,
+                 l_in: Optional[LabelTable] = None,
+                 plan: BuildPlan, report: BuildReport, rank: np.ndarray):
+        if (store is None) == (l_out is None):
+            raise ValueError("exactly one of `store` or the "
+                             "`l_out`/`l_in` pair must be given")
+        if (l_out is None) != (l_in is None):
+            raise ValueError("directed indices need both l_out and l_in")
+        if l_out is not None:
+            # the card's two-table query reads each row only below its
+            # count
+            lbl.check_padding(l_out)
+            lbl.check_padding(l_in)
         self.store = store
+        self.l_out = l_out
+        self.l_in = l_in
         self.plan = plan
         self.report = report
         self.rank = np.asarray(rank)
         # live QueryServices handed out by serve(), kept weakly with
-        # the mode needed to rebuild their answer fns after apply()
-        self._services: List[Tuple[weakref.ref, str]] = []
+        # the knobs needed to rebuild their answer fns after apply()
+        self._services: List[Tuple[weakref.ref, dict]] = []
 
     # ---------------------------------------------------- properties
 
     @property
-    def table(self):
-        """The dense label table behind the store."""
-        return self.store.to_table()
+    def directed(self) -> bool:
+        return self.store is None
+
+    @property
+    def table(self) -> Optional[LabelTable]:
+        """The dense label table behind the store (merged from its
+        shards for a sharded store); None for a directed index."""
+        return None if self.directed else self.store.to_table()
 
     @property
     def n(self) -> int:
-        return self.store.n
+        return self.l_out.n if self.directed else self.store.n
 
     @property
     def total_labels(self) -> int:
+        if self.directed:
+            return lbl.total_labels(self.l_out) + lbl.total_labels(self.l_in)
         return self.store.total_labels
 
     @property
     def als(self) -> float:
-        """Average label size."""
-        return self.total_labels / max(1, self.n)
+        """Average label size (per direction for a directed graph)."""
+        return self.total_labels / max(1, self.n * (2 if self.directed
+                                                    else 1))
 
     # --------------------------------------------------------- query
 
@@ -116,39 +152,60 @@ class CHLIndex:
 
     def query_with_hub(self, u, v) -> Tuple[np.ndarray, np.ndarray]:
         """Distances plus the witnessing hub id (-1 when disjoint)."""
+        if self.directed:
+            d, h = self._directed_query(u, v, with_hub=True)
+            return d.cpu().numpy(), h.cpu().numpy()
         return self.store.query(u, v)
+
+    def _directed_query(self, u, v, with_hub: bool = False):
+        from repro_torch.core.directed import query_directed
+        dev = self.l_out.hubs.device
+        return query_directed(self.l_out, self.l_in, as_index(u, dev),
+                              as_index(v, dev), with_hub=with_hub)
 
     # --------------------------------------------------------- serve
 
     def serve(self, mode: str = "qlsn", *, batch_size: int = 1024,
               drop_first: bool = True, deadline_ms: float = 2.0,
               cache: int = 0, max_queue: Optional[int] = None,
+              routed: Optional[bool] = None,
               timeout_ms: Optional[float] = None,
               breaker_threshold: int = 5,
               breaker_reset_s: float = 30.0) -> QueryService:
         """The serving tier (:class:`repro_torch.serve.QueryService`)
         over this index's labels; see the service for the knobs.
+        ``routed`` overrides per-shard routing of a sharded store
+        (``None``: routed when it has several shards). A directed index
+        serves QLSN from its ``L_out``/``L_in`` pair, with the answer
+        cache built ``symmetric=False``: d(u->v) and d(v->u) never share
+        an entry.
 
         The returned service stays registered (weakly) with this index:
         :meth:`apply` re-installs every live service's answer fn and
         bumps its cache epoch, so a mutated index never serves a stale
         answer."""
-        svc = QueryService(self._answer_fn(mode), batch_size=batch_size,
-                           drop_first=drop_first,
+        svc = QueryService(self._answer_fn(mode, routed=routed),
+                           batch_size=batch_size, drop_first=drop_first,
                            deadline_s=deadline_ms * 1e-3,
                            cache_size=cache, max_queue=max_queue,
-                           cache_symmetric=True,
+                           cache_symmetric=not self.directed,
                            timeout_s=(None if timeout_ms is None
                                       else timeout_ms * 1e-3),
                            breaker_threshold=breaker_threshold,
                            breaker_reset_s=breaker_reset_s)
-        self._services.append((weakref.ref(svc), mode))
+        self._services.append((weakref.ref(svc),
+                               {"mode": mode, "routed": routed}))
         return svc
 
-    def _answer_fn(self, mode: str):
+    def _answer_fn(self, mode: str, routed: Optional[bool] = None):
         """The serving answer callable over the current labels (what
         serve() installs and apply() re-installs)."""
-        return backends.make_answer_fn(self.store, mode)
+        if self.directed:
+            if mode != "qlsn":
+                raise NotImplementedError(
+                    "directed serving currently supports mode='qlsn'")
+            return lambda u, v: self._directed_query(u, v)
+        return backends.make_answer_fn(self.store, mode, routed=routed)
 
     # --------------------------------------------------------- mutate
 
@@ -183,12 +240,12 @@ class CHLIndex:
         """Rebuild each live service's answer fn against the mutated
         store and bump its cache epoch; dead services are pruned."""
         alive = []
-        for ref, mode in self._services:
+        for ref, knobs in self._services:
             svc = ref()
             if svc is None:
                 continue
-            svc.invalidate(self._answer_fn(mode))
-            alive.append((ref, mode))
+            svc.invalidate(self._answer_fn(**knobs))
+            alive.append((ref, knobs))
         self._services = alive
 
     # ------------------------------------------------------ validate
@@ -197,8 +254,8 @@ class CHLIndex:
         """Check this index against ground truth; raises AssertionError
         on a mismatch. ``oracle`` is either a ``Graph`` (every pair's
         distance against Dijkstra: the cover property) or PLL label
-        sets (exact CHL label-set equality)."""
-        from repro_torch.core import labels as lbl
+        sets (exact CHL label-set equality; an ``(l_out, l_in)`` pair
+        for a directed index)."""
         from repro_torch.core import validate as val
         if hasattr(oracle, "indptr"):            # a Graph: cover check
             from repro_torch.sssp.oracle import all_pairs
@@ -219,7 +276,12 @@ class CHLIndex:
                 raise AssertionError(
                     "reports finite distance for disconnected pair")
             return True
-        val.check_equal(lbl.to_numpy_sets(self.table), oracle)
+        if self.directed:
+            ref_out, ref_in = oracle
+            val.check_equal(lbl.to_numpy_sets(self.l_out), ref_out)
+            val.check_equal(lbl.to_numpy_sets(self.l_in), ref_in)
+        else:
+            val.check_equal(lbl.to_numpy_sets(self.table), oracle)
         return True
 
     # -------------------------------------------------------- memory
@@ -227,10 +289,15 @@ class CHLIndex:
     def memory_report(self, q: Optional[int] = None) -> dict:
         """Per-mode cluster label storage (Table 4) for ``q`` nodes
         (default: the build's) plus the store's resident
-        ``label_bytes``, bytes per label and the ratio to dense f32
-        (8 B a label)."""
-        from repro_torch.core.query import mode_memory_totals
+        ``label_bytes``, bytes per label, the ratio to dense f32 (8 B a
+        label) and, for a sharded store, the per-shard split; a directed
+        index reports the bytes of each direction."""
+        from repro_torch.core.query import (label_memory_bytes,
+                                            mode_memory_totals)
         q = q or self.report.q
+        if self.directed:
+            return {"l_out_bytes": label_memory_bytes(self.l_out),
+                    "l_in_bytes": label_memory_bytes(self.l_in), "q": q}
         base = self.store.label_bytes()
         total = self.store.total_labels
         out = mode_memory_totals(self.n, base, q)
@@ -240,6 +307,8 @@ class CHLIndex:
         out["dense_f32_bytes"] = total * 8
         out["bytes_per_label"] = base / max(1, total)
         out["compression_ratio"] = (total * 8) / max(1, base)
+        if hasattr(self.store, "shard_label_bytes"):
+            out["shard_bytes"] = self.store.shard_label_bytes()
         return out
 
     # ---------------------------------------------------------- disk
@@ -253,24 +322,39 @@ class CHLIndex:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         np.save(os.path.join(tmp, "rank.npy"), self.rank)
-        shard_labels, shard_sha = [], []
-        for k, arrs in self.store.shard_arrays():
+
+        def write_shard(k: int, arrays: dict) -> str:
             path = os.path.join(tmp, shard_filename(k))
-            with_retries(lambda: np.savez(path, **arrs),
+            with_retries(lambda: np.savez(path, **arrays),
                          describe=f"index shard {k}")
             fault_site("artifact.save.shard", path=path)
-            shard_sha.append(file_sha256(path))
-            shard_labels.append(int(np.sum(arrs["count"])))
-        store_info = {"kind": "dense", "shards": self.store.num_shards,
-                      "shard_labels": shard_labels,
-                      "shard_sha256": shard_sha}
+            return file_sha256(path)
+
+        if self.directed:
+            arrays = {f"{pfx}_{key}": x.cpu().numpy()
+                      for pfx, t in (("out", self.l_out), ("in", self.l_in))
+                      for key, x in zip(("hubs", "dist", "count"), t)}
+            shard_sha = [write_shard(0, arrays)]
+            store_info = {"kind": "dense", "shards": 1,
+                          "shard_labels": [self.total_labels]}
+        else:
+            shard_labels, shard_sha = [], []
+            for k, arrs in self.store.shard_arrays():
+                shard_sha.append(write_shard(k, arrs))
+                shard_labels.append(int(np.sum(arrs["count"])))
+            store_info = {"kind": ("sharded" if self.store.num_shards > 1
+                                   else "dense"),
+                          "shards": self.store.num_shards,
+                          "shard_labels": shard_labels}
+        # per-file integrity, verified on load
+        store_info["shard_sha256"] = shard_sha
         manifest = {
             "format": FORMAT,
             "version": VERSION,
             "plan": self.plan.to_dict(),
             "report": self.report.to_dict(),
             "rank_hash": rank_hash(self.rank),
-            "directed": False,
+            "directed": self.directed,
             "n": self.n,
             "total_labels": self.total_labels,
             "als": self.als,
@@ -292,12 +376,25 @@ class CHLIndex:
 
     @classmethod
     def load(cls, directory: str, rank: Optional[np.ndarray] = None, *,
-             device: DeviceLike = None) -> "CHLIndex":
-        """Load a saved dense index onto ``device`` (default: the card;
-        raises without CUDA). When ``rank`` is given it must hash to
-        the manifest's ``rank_hash``. Every shard file is re-hashed
-        against the manifest's sha256; a mismatch raises
-        :class:`CorruptArtifactError`."""
+             store: Optional[str] = None, shards: Optional[int] = None,
+             device: DeviceLike = None, verify: bool = True) -> "CHLIndex":
+        """Load a saved index onto ``device`` (default: the card; raises
+        without CUDA). When ``rank`` is given it must hash to the
+        manifest's ``rank_hash``. ``store`` overrides the saved
+        residency: ``"dense"`` merges the shards, ``"sharded"``
+        (re-)partitions by hub rank (``shards`` picks K; a sharded
+        artifact keeps its K unless ``shards`` differs). A directed index
+        loads dense only. ``verify`` (default on) re-hashes every shard
+        file against the manifest's sha256 and raises
+        :class:`CorruptArtifactError` on a mismatch; the per-shard
+        label-count check runs either way."""
+        if store is not None and store not in LOAD_STORE_KINDS:
+            raise ValueError(f"store {store!r} not one of "
+                             f"{LOAD_STORE_KINDS}")
+        if store in ("spill", "compressed"):
+            raise NotImplementedError(
+                f"store={store!r} is not ported yet (ROADMAP Queue 1, "
+                "item 9); this port loads store='dense' or 'sharded'")
         dev = resolve_device(device)
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = json.load(f)
@@ -311,17 +408,19 @@ class CHLIndex:
                 f"{directory}: index version {version} is newer than "
                 f"supported ({VERSION})")
         info = manifest.get("store") or {}
-        if version < VERSION or manifest.get("directed") \
-                or info.get("kind") != "dense" \
-                or int(info.get("shards", 1)) != 1:
+        if version < VERSION:
             raise NotImplementedError(
-                f"{directory}: only undirected dense version-{VERSION} "
-                "artifacts load in this port (v1/v2 artifacts: ROADMAP "
-                "Queue 1, item 6; directed: item 8; sharded and "
-                "compressed: item 9)")
+                f"{directory}: version-{version} artifacts do not load in "
+                "this port yet (ROADMAP Queue 1, item 6); it loads "
+                f"version {VERSION}")
+        if info.get("kind") not in ("dense", "sharded"):
+            raise NotImplementedError(
+                f"{directory}: a {info.get('kind')!r} artifact does not "
+                "load in this port yet (ROADMAP Queue 1, item 9)")
         plan = BuildPlan.from_dict(manifest["plan"])
         report = BuildReport.from_dict(manifest["report"])
-        cls._verify_checksums(directory, manifest)
+        if verify:
+            cls._verify_checksums(directory, manifest)
         stored_rank = np.load(os.path.join(directory, "rank.npy"))
         if rank_hash(stored_rank) != manifest["rank_hash"]:
             raise CorruptArtifactError(
@@ -331,29 +430,69 @@ class CHLIndex:
             raise ValueError(
                 f"{directory}: rank-hash mismatch — this index was "
                 "built under a different vertex hierarchy")
-        arrs = cls._open_shard(directory, 0)
+        directed = bool(manifest.get("directed"))
         expected = info.get("shard_labels")
-        got = int(np.sum(arrs["count"]))
-        if expected is not None and got != int(expected[0]):
-            raise CorruptArtifactError(
-                f"{directory}: {shard_filename(0)} holds {got} labels but "
-                f"the manifest recorded {int(expected[0])}")
-        table = interop.label_table(arrs["hubs"], arrs["dist"],
-                                    arrs["count"], dev)
-        return cls(DenseStore(table), plan=plan, report=report,
-                   rank=stored_rank)
+        shard_list = []
+        for k in range(int(info.get("shards", 1))):
+            arrs = cls._open_shard(directory, k)
+            got = (int(np.sum(arrs["out_count"]) + np.sum(arrs["in_count"]))
+                   if directed else int(np.sum(arrs["count"])))
+            if expected is not None and got != int(expected[k]):
+                raise CorruptArtifactError(
+                    f"{directory}: {shard_filename(k)} holds {got} labels "
+                    f"but the manifest recorded {int(expected[k])} "
+                    "(corrupt or mixed-version artifact)")
+            shard_list.append(arrs)
+        if directed:
+            if store not in (None, "dense"):
+                raise NotImplementedError(
+                    "directed indices support only dense residency")
+            (s,) = shard_list
+
+            def tbl(pfx: str) -> LabelTable:
+                return interop.label_table(s[f"{pfx}_hubs"], s[f"{pfx}_dist"],
+                                           s[f"{pfx}_count"], dev)
+
+            return cls(l_out=tbl("out"), l_in=tbl("in"), plan=plan,
+                       report=report, rank=stored_rank)
+        if info.get("kind") == "sharded" or len(shard_list) > 1:
+            built = ShardedStore.from_shard_arrays(shard_list, device=dev)
+        else:
+            built = DenseStore.from_shard_arrays(shard_list, device=dev)
+        return cls(cls._rehome(built, store, stored_rank, shards),
+                   plan=plan, report=report, rank=stored_rank)
+
+    @staticmethod
+    def _rehome(store: LabelStore, kind: Optional[str], rank: np.ndarray,
+                shards: Optional[int]) -> LabelStore:
+        """Convert a loaded store to the requested residency."""
+        if kind is None:
+            return store
+        if kind == "dense":
+            return (store if isinstance(store, DenseStore)
+                    else DenseStore(store.to_table()))
+        # "sharded": repartition unless the shard count already matches
+        if isinstance(store, ShardedStore) and shards in (
+                None, store.num_shards):
+            return store
+        K = shards or max(2, store.num_shards)
+        return ShardedStore.from_table(store.to_table(), rank, K)
 
     @staticmethod
     def _open_shard(directory: str, k: int) -> dict:
         path = os.path.join(directory, shard_filename(k))
         fault_site("artifact.load.shard", path=path)
+        if not os.path.exists(path):
+            raise CorruptArtifactError(
+                f"missing shard file {path} — artifact is incomplete")
         try:
             with np.load(path) as z:
-                return {name: z[name] for name in ("hubs", "dist", "count")}
+                return {name: z[name] for name in z.files}
         except (OSError, KeyError, ValueError, EOFError,
                 zipfile.BadZipFile) as e:
             raise CorruptArtifactError(
-                f"{directory}: {shard_filename(k)} unreadable ({e})") from e
+                f"{directory}: {shard_filename(k)} is truncated or corrupt "
+                f"({e})") from e
 
     @staticmethod
     def _verify_checksums(directory: str, manifest: dict) -> None:

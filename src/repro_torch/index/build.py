@@ -10,8 +10,13 @@ in ``report.overflow_events``. With a checkpoint manager attached
 retry resumes from the last committed superstep (the engine pads the
 smaller-cap state to the grown cap) instead of restarting the build.
 
-The port builds ``plant``, ``pll-ref``, ``gll``, ``lcc`` and
-``parapll`` into ``store="dense"``; other algorithms and stores raise
+Label residency follows the plan. ``store="sharded"`` builds of a
+streaming algorithm (PLaNT, pll-ref: emissions final on arrival)
+hub-partition each superstep's labels straight into per-shard arrays
+and never hold the dense ``[n, cap]`` table; GLL, LCC and paraPLL
+consult their global table while building, so they build dense and
+re-home. ``algo="directed"`` builds the dense ``L_out``/``L_in`` pair.
+The distributed algorithms and the compressed store raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -21,17 +26,28 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelOverflowError
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import PORTED_ALGOS, run_build
+from repro_torch.engine import PORTED_ALGOS, STREAMING_ALGOS, run_build
 from repro_torch.engine.runner import unported_algo
 from repro_torch.index.artifact import CHLIndex
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport, OverflowEvent
-from repro_torch.index.store import DenseStore
+from repro_torch.index.store import DenseStore, ShardedStore
 from repro_torch.kernels.ell_relax import layout_plan, windowed_note
+
+
+def _resolve_shards(plan: BuildPlan, device) -> int:
+    """The shard-count rule: the plan's ``shards`` if set, else the
+    number of devices of the build's device type (1 on the CPU)."""
+    if plan.shards:
+        return plan.shards
+    if device.type == "cuda":
+        return max(1, torch.cuda.device_count())
+    return 1
 
 
 def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
@@ -45,14 +61,23 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     plan = plan or BuildPlan()
     if plan.algo not in PORTED_ALGOS:
         raise unported_algo(plan.algo)
-    if plan.store != "dense":
+    if plan.algo == "directed" and not g.directed:
+        raise ValueError("algo='directed' needs a directed graph")
+    if plan.algo != "directed" and g.directed:
+        raise ValueError(f"algo={plan.algo!r} needs an undirected "
+                         "graph; use algo='directed'")
+    if plan.algo == "directed" and plan.store != "dense":
+        raise ValueError("directed builds support only store='dense' "
+                         "(sharded directed serving is a ROADMAP item)")
+    if plan.store == "compressed":
         raise NotImplementedError(
-            f"store={plan.store!r} is not ported yet (ROADMAP Queue 1, "
-            "item 9); this port builds store='dense'")
-    if g.directed:
-        raise ValueError(f"algo={plan.algo!r} needs an undirected graph")
+            "store='compressed' is not ported yet (ROADMAP Queue 1, "
+            "item 9); this port builds store='dense' or 'sharded'")
     n = g.n
     cap = min(plan.cap or lbl.default_cap(n), n)
+    streaming_shards = (_resolve_shards(plan, dev)
+                        if plan.store == "sharded"
+                        and plan.algo in STREAMING_ALGOS else None)
     notes = []
     # the host oracle (pll-ref) runs no sweeps
     windows = (layout_plan(n, dev, bb=plan.batch)
@@ -68,7 +93,8 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
             # the first attempt resumes only on request; regrow retries
             # resume whenever checkpoints exist
             res = run_build(g, rank, algo=plan.algo, batch=plan.batch,
-                            cap=cap, alpha=plan.alpha, device=dev,
+                            cap=cap, alpha=plan.alpha,
+                            streaming_shards=streaming_shards, device=dev,
                             ckpt=ckpt,
                             resume=(resume if attempt == 0
                                     else ckpt is not None),
@@ -93,12 +119,26 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
             attempt += 1
     wall = time.perf_counter() - t0
 
-    store = DenseStore(res.sink.table())
-    total = store.total_labels
-    report = BuildReport(
-        algo=plan.algo, wall_s=wall, total_labels=total,
-        als=total / max(1, n), cap=cap, supersteps=list(res.records),
+    report_kw = dict(
+        algo=plan.algo, wall_s=wall, cap=cap, supersteps=list(res.records),
         overflow_events=overflow_events, notes=notes,
         cleaned=int(res.counters.get("cleaned", 0)),
         constructed=int(res.counters.get("constructed", 0)))
+    if plan.algo == "directed":
+        l_out, l_in = res.sink.table("out"), res.sink.table("in")
+        total = lbl.total_labels(l_out) + lbl.total_labels(l_in)
+        report = BuildReport(total_labels=total, als=total / max(1, 2 * n),
+                             **report_kw)
+        return CHLIndex(l_out=l_out, l_in=l_in, plan=plan, report=report,
+                        rank=rank)
+    if res.sink.kind == "sharded":       # streamed: the shards are the build
+        store = ShardedStore.from_accumulator(res.sink.acc, device=dev)
+    elif plan.store == "sharded":
+        store = ShardedStore.from_table(res.sink.table(), rank,
+                                        _resolve_shards(plan, dev))
+    else:
+        store = DenseStore(res.sink.table())
+    total = store.total_labels
+    report = BuildReport(total_labels=total, als=total / max(1, n),
+                         **report_kw)
     return CHLIndex(store, plan=plan, report=report, rank=rank)

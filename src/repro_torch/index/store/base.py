@@ -1,9 +1,9 @@
 """`LabelStore` — the label-residency protocol behind ``CHLIndex``.
 
 Everything outside ``index/store/`` (artifact save/load, serving) talks
-to this protocol, never to a backend's internal arrays. This slice
-ports the dense backend; the sharded, spill and compressed backends of
-the reference are still to port.
+to this protocol, never to a backend's internal arrays. The port has
+the dense and the hub-sharded backends; the reference's spill and
+compressed backends are still to port (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -18,6 +18,11 @@ class CorruptArtifactError(ValueError):
     checksum mismatch, truncated shard npz, label counts that contradict
     the manifest. Subclasses ``ValueError``; catch it to tell corruption
     from misuse (wrong rank, wrong store kind)."""
+
+
+#: residencies ``CHLIndex.load(store=...)`` names (the reference's list;
+#: "spill" and "compressed" raise in this port)
+LOAD_STORE_KINDS = ("dense", "sharded", "spill", "compressed")
 
 
 class LabelStore(Protocol):
@@ -40,6 +45,15 @@ class LabelStore(Protocol):
     def query(self, u, v) -> Tuple[np.ndarray, np.ndarray]:
         """Batched PPSD: (distance f32 [Q], witnessing hub i32 [Q];
         +inf / -1 when the label sets are disjoint)."""
+        ...
+
+    def shard_counts(self) -> np.ndarray:
+        """Host ``[K, n]`` per-shard label counts (the routing table)."""
+        ...
+
+    def query_shard_device(self, k: int, u, v):
+        """Partial PPSD over shard ``k`` as tensors on the store's
+        device (+inf / -1 where it holds no common hub)."""
         ...
 
     def to_table(self):

@@ -13,8 +13,10 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch import interop
 from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelTable
+from repro_torch.device import DeviceLike
 from repro_torch.kernels.label_query import query_table
 
 
@@ -60,6 +62,23 @@ class DenseStore:
         d, h = self.query_device(u, v)
         return d.cpu().numpy(), h.cpu().numpy()
 
+    # The store protocol's per-shard half, as the reference's DenseStore
+    # has it: serving routes only a multi-shard store, so on a dense
+    # store these are called by the parity tests alone.
+    def shard_counts(self) -> np.ndarray:
+        """``[1, n]`` label counts (routing degenerates for one shard)."""
+        return self._table.count.cpu().numpy()[None]
+
+    def query_shard_device(self, k: int, u, v
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if k != 0:
+            raise IndexError(f"dense store has one shard, not {k + 1}")
+        return self.query_device(u, v)
+
+    def query_shard(self, k: int, u, v) -> Tuple[np.ndarray, np.ndarray]:
+        d, h = self.query_shard_device(k, u, v)
+        return d.cpu().numpy(), h.cpu().numpy()
+
     def to_table(self) -> LabelTable:
         return self._table
 
@@ -72,3 +91,26 @@ class DenseStore:
         yield 0, {"hubs": t.hubs.cpu().numpy(),
                   "dist": t.dist.cpu().numpy(),
                   "count": t.count.cpu().numpy()}
+
+    @classmethod
+    def from_shard_arrays(cls, shards, device: DeviceLike = None
+                          ) -> "DenseStore":
+        """Merge per-shard host ``{hubs, dist, count}`` dicts into one
+        table on ``device`` (default: the card): each row's shard slots
+        concatenated in shard order, the valid ones first, trimmed to
+        the tight cap (as the reference merges them)."""
+        shards = list(shards)
+        if len(shards) == 1:
+            s = shards[0]
+            return cls(interop.label_table(s["hubs"], s["dist"], s["count"],
+                                           device))
+        h2 = np.concatenate([np.asarray(s["hubs"]) for s in shards], axis=1)
+        d2 = np.concatenate([np.asarray(s["dist"]) for s in shards], axis=1)
+        valid = h2 >= 0
+        order = np.argsort(~valid, axis=1, kind="stable")  # keepers first
+        h2 = np.take_along_axis(h2, order, axis=1)
+        d2 = np.take_along_axis(d2, order, axis=1)
+        count = valid.sum(axis=1).astype(np.int32)
+        cap = int(max(1, count.max()))
+        return cls(interop.label_table(h2[:, :cap], d2[:, :cap], count,
+                                       device))

@@ -5,10 +5,12 @@ Two forms of one kernel, each one launch on the current stream:
 
 - `label_query_rows`: the serving form. It reads the query's two rows
   straight from a label table at int64 ids, each row bounded by its
-  count;
+  count; `label_query_pair_rows` is the same launch with the u-side
+  rows read from one table and the v-side rows from another (a
+  directed query: ``L_out[u]`` against ``L_in[v]``);
 - `label_query`: the operand form, row q of four ``[Q, L]`` operands.
 
-Both take CUDA tensors only; they check device, dtype, shape and
+All take CUDA tensors only; they check device, dtype, shape and
 contiguity, allocate the outputs and raise if the launch was refused.
 ``KERNEL.launches`` counts launches. `launch_geometry` is the launch's
 shape: a pure function of ``(Q, L, sm_count)`` that the CPU tests call.
@@ -111,6 +113,40 @@ def label_query_rows(hubs, dist, count, u, v):
                    ("u", u, torch.int64, (Q,)),
                    ("v", v, torch.int64, (Q,))])
     return _launch(hubs, dist, count, u, hubs, dist, count, v, n, Q, L)
+
+
+def check_same_shape(table_u, table_v) -> None:
+    """Raise ValueError unless the two label tables are both ``[n, L]``
+    of one n and one L (a two-table query's precondition)."""
+    if table_u.hubs.shape != table_v.hubs.shape:
+        raise ValueError(
+            f"label_query: the two tables differ in shape "
+            f"({tuple(table_u.hubs.shape)} against "
+            f"{tuple(table_v.hubs.shape)})")
+
+
+def label_query_pair_rows(table_u, table_v, u, v):
+    """(dist f32 [Q], hub i32 [Q]) of the queries ``(u[q], v[q])`` with
+    u's row read from ``table_u`` and v's from ``table_v`` (two label
+    tables on the card of one shape ``[n, L]``), in one launch: the
+    directed query over ``L_out[u]`` and ``L_in[v]``. The witness is the
+    first row-major argmin's u-side hub, as in the reference's
+    ``query_directed``. Both tables must keep `label_query_rows`'
+    precondition (``(-1, +inf)`` at and past each row's count)."""
+    check_same_shape(table_u, table_v)
+    n, L = table_u.hubs.shape if table_u.hubs.dim() == 2 else (-1, -1)
+    Q = u.shape[0] if u.dim() == 1 else -1
+    check_tensors("label_query", table_u.hubs.device,
+                  [("hubs_u", table_u.hubs, torch.int32, (n, L)),
+                   ("dist_u", table_u.dist, torch.float32, (n, L)),
+                   ("count_u", table_u.count, torch.int32, (n,)),
+                   ("hubs_v", table_v.hubs, torch.int32, (n, L)),
+                   ("dist_v", table_v.dist, torch.float32, (n, L)),
+                   ("count_v", table_v.count, torch.int32, (n,)),
+                   ("u", u, torch.int64, (Q,)),
+                   ("v", v, torch.int64, (Q,))])
+    return _launch(table_u.hubs, table_u.dist, table_u.count, u,
+                   table_v.hubs, table_v.dist, table_v.count, v, n, Q, L)
 
 
 def label_query(hubs_u, dist_u, hubs_v, dist_v):

@@ -1,36 +1,50 @@
 """Storage-mode wiring for PPSD query serving.
 
 Turns a label store into an ``answer(u, v) -> dist`` callable for one
-of the paper's §6.3 storage modes. This slice serves QLSN (every node
-holds all labels; the querying node intersects locally) over a
-:class:`DenseStore`: on the card the answer is one launch of the
-`label_query` kernel, which reads the label rows from the table. QFDL,
-QDOL and the other stores are still to port.
+of the paper's §6.3 storage modes. The port serves QLSN (every node
+holds all labels; the querying node intersects locally):
+
+- a :class:`DenseStore` answers with one launch of the ``label_query``
+  kernel, which reads the label rows from the table;
+- a :class:`ShardedStore` answers from its own hub partitions: by
+  default routed (`repro_torch.serve.routing`: each shard only over the
+  queries whose endpoints both hold labels in it), or with
+  ``routed=False`` the stacked reduction (K launches and one
+  cross-shard minimum). Both equal the dense answer bit for bit.
+
+QFDL and QDOL are still to port (ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.index.store import DenseStore
+from repro_torch.index.store import DenseStore, ShardedStore
 
 MODES = ("qlsn", "qfdl", "qdol")
 
 AnswerFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def make_answer_fn(store, mode: str = "qlsn") -> AnswerFn:
-    """Answer callable for a storage mode: ``(u, v) -> dist f32 [Q]``
-    on the store's device."""
+def make_answer_fn(store, mode: str = "qlsn", *,
+                   routed: Optional[bool] = None) -> AnswerFn:
+    """Answer callable for a storage mode: ``(u, v) -> dist f32 [Q]`` on
+    the store's device. ``routed`` turns per-shard routing on or off;
+    ``None`` routes a multi-shard store, and a single-shard store never
+    routes."""
     if mode not in MODES:
         raise ValueError(f"unknown query mode {mode!r}; one of {MODES}")
     if mode != "qlsn":
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet (ROADMAP Queue 1, item 11)")
-    if not isinstance(store, DenseStore):
+    if not isinstance(store, (DenseStore, ShardedStore)):
         raise NotImplementedError(
-            f"serving a {type(store).__name__} is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            f"serving a {type(store).__name__} is not ported yet (spill "
+            "and compressed stores: ROADMAP Queue 1, item 9)")
+    routable = isinstance(store, ShardedStore) and store.num_shards > 1
+    if routable if routed is None else (routed and routable):
+        from repro_torch.serve.routing import make_routed_answer_fn
+        return make_routed_answer_fn(store)
     return lambda u, v: store.query_device(u, v)[0]

@@ -16,7 +16,7 @@ to bottom:
          │            waste and the number of launch shapes)
     answer fn         `repro_torch.serve.backends.make_answer_fn` —
                       the storage-mode wiring (QLSN over a dense
-                      store in this slice)
+                      or hub-sharded store)
 
 Construction goes through ``CHLIndex.serve(...)``.
 
@@ -465,18 +465,21 @@ class QueryService:
         """Liveness/degradation report for operators and probes.
 
         ``status``: ``"ok"`` (everything answering), ``"degraded"``
-        (answers flow but faults occurred — failed launches or expired
-        queries), ``"unavailable"`` (breaker open: submissions fail
-        fast)."""
+        (answers flow but faults occurred — failed launches, expired
+        queries, or quarantined shards), ``"unavailable"`` (breaker
+        open: submissions fail fast). Quarantined shards come from the
+        routed answer fn when it tracks them
+        (:class:`repro_torch.serve.routing.RoutedAnswer`)."""
         now = self._clock()
         st = self.stats_
+        quarantined = dict(getattr(self._answer, "quarantined", None) or {})
         retry_in = 0.0
         if self._breaker == "open":
             retry_in = max(0.0, self.breaker_reset_s
                            - (now - self._breaker_opened_at))
         if self._breaker == "open" and retry_in > 0:
             status = "unavailable"
-        elif (st.answer_failures or st.timeouts
+        elif (quarantined or st.answer_failures or st.timeouts
                 or self._breaker != "closed"):
             status = "degraded"
         else:
@@ -493,4 +496,5 @@ class QueryService:
             "breaker_fast_fails": st.breaker_fast_fails,
             "queue_depth": len(self._pu),
             "last_error": self._last_error,
+            "quarantined_shards": quarantined,
         }

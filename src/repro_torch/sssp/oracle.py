@@ -40,20 +40,17 @@ def dijkstra_maxrank(g: Graph, root: int,
     """Distances + ``mrank[v]`` = max rank over the union of all
     shortest ``root -> v`` paths (endpoints inclusive): the scalar
     oracle of PLaNT's criterion, label ``(root, v)`` is canonical iff
-    ``mrank[v] == rank[root]``. Undirected graphs (a directed one needs
-    ``Graph.reverse``, ROADMAP Queue 1 item 2)."""
-    if g.directed:
-        raise NotImplementedError(
-            "dijkstra_maxrank on a directed graph needs Graph.reverse "
-            "(ROADMAP Queue 1, item 2)")
+    ``mrank[v] == rank[root]``. A digraph's predecessors are read from
+    its reverse."""
     dist = dijkstra(g, root)
+    gin = g.reverse() if g.directed else g   # predecessor enumeration
     mrank = np.full(g.n, -1, dtype=np.int64)
     mrank[root] = rank[root]
     for v in np.argsort(dist, kind="stable"):
         if not np.isfinite(dist[v]) or v == root:
             continue
         best = -1
-        ids, w = g.out_edges(v)          # undirected: the in-edges too
+        ids, w = gin.out_edges(v)        # the in-edges of v
         for u, wt in zip(ids.tolist(), w.tolist()):
             if np.isfinite(dist[u]) and dist[u] + wt == dist[v]:
                 best = max(best, mrank[u])

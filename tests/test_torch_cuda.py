@@ -29,7 +29,12 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   size and the short/long split, counts 0..L, repeated hubs, ties,
   disjoint rows, u == v and negative ids, and past the 1,024 slots a
   warp stages at once; one launch and no other kernel per
-  ``query_table`` call; an id out of range is a device-side fault.
+  ``query_table`` call; an id out of range is a device-side fault;
+- the two-table form (a directed query: u's rows from ``L_out``, v's
+  from ``L_in``) equals the plain version in one launch; a sharded
+  store's stacked query (one launch a shard, then a minimum over the
+  shards) equals the dense query and takes the lowest shard's hub on a
+  tie; directed and sharded builds on the card equal the CPU's.
 """
 
 import copy
@@ -615,3 +620,103 @@ def test_repair_on_card_equals_cpu(cuda_device):
     want = np.array([dijkstra(g_new, int(a))[int(b)] for a, b in zip(u, v)],
                     np.float32)
     assert np.array_equal(got, want)
+
+
+# ------------------------------------- directed and hub-sharded paths
+
+@pytest.mark.parametrize("L", [1, 8, 33, 288])
+@pytest.mark.parametrize("Q", [1, 1000, 65_537])
+def test_label_query_pair_rows_equals_plain(cuda_device, L, Q):
+    """The two-table form (u's row from one table, v's from another):
+    one launch, equal to the plain version over the gathered rows, with
+    empty rows, ties, disjoint rows and negative ids."""
+    from repro_torch.kernels.label_query import (label_query_pair_rows,
+                                                 label_query_ref)
+    rng = np.random.default_rng(L * 7 + Q)
+    t_out, u, v = query_state(rng, 3000, L, Q, cuda_device)
+    t_in, _, _ = query_state(rng, 3000, L, 1, cuda_device)
+    before = LABEL_QUERY.launches
+    kd, kh = label_query_pair_rows(t_out, t_in, u, v)
+    assert LABEL_QUERY.launches == before + 1
+    step = max(1, 2 ** 26 // (L * L))
+    parts = [label_query_ref(t_out.hubs[u[i:i + step]],
+                             t_out.dist[u[i:i + step]],
+                             t_in.hubs[v[i:i + step]],
+                             t_in.dist[v[i:i + step]])
+             for i in range(0, Q, step)]
+    pd = torch.cat([p[0] for p in parts])
+    ph = torch.cat([p[1] for p in parts])
+    assert torch.equal(kd, pd) and torch.equal(kh, ph)
+
+
+def test_label_query_pair_rows_refuses_unequal_tables(cuda_device):
+    from repro_torch.kernels.label_query import label_query_pair_rows
+    a = labels.empty(10, 4, cuda_device)
+    b = labels.empty(10, 8, cuda_device)
+    ids = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="differ in shape"):
+        label_query_pair_rows(a, b, ids, ids)
+    with pytest.raises(ValueError, match="int64"):
+        label_query_pair_rows(a, a, ids.int(), ids)
+
+
+def test_sharded_stacked_query_equals_dense_with_a_tie(cuda_device):
+    """The stacked query (K launches and one cross-shard minimum) equals
+    the dense query on the card, and a tie across shards takes the
+    lowest shard's hub."""
+    from repro_torch.index.store import ShardedStore
+    g = random_connected(300, 400, seed=2, max_w=3)
+    rank = degree_ranking(g)
+    dense = build(g, rank, BuildPlan(algo="plant", batch=8),
+                  device=cuda_device)
+    st = ShardedStore.from_table(dense.table, rank, 4)
+    rng = np.random.default_rng(1)
+    u, v = rng.integers(0, g.n, 5000), rng.integers(0, g.n, 5000)
+    before = LABEL_QUERY.launches
+    d, _ = st.query(u, v)
+    assert LABEL_QUERY.launches == before + 4
+    assert np.array_equal(d, dense.query(u, v))
+    h = np.full((3, 2, 1), -1, np.int32)
+    dd = np.full((3, 2, 1), np.inf, np.float32)
+    c = np.zeros((3, 2), np.int32)
+    for k, hub in ((1, 5), (2, 6)):        # both shards answer 3 for (0, 1)
+        h[k, :, 0], dd[k, 0, 0], dd[k, 1, 0], c[k] = hub, 1.0, 2.0, 1
+    tie = ShardedStore(*(torch.as_tensor(x, device=cuda_device)
+                         for x in (h, dd, c)))
+    td, th = tie.query([0, 1], [1, 0])
+    assert td.tolist() == [3.0, 3.0] and th.tolist() == [5, 5]
+
+
+@pytest.mark.parametrize("what", ["directed", "sharded-plant",
+                                  "sharded-gll"])
+def test_directed_and_sharded_builds_on_card_equal_cpu(cuda_device, what):
+    if what == "directed":
+        g = random_connected(80, 160, seed=4, directed=True)
+        plan = BuildPlan(algo="directed", batch=8)
+    else:
+        g = grid_road(9, 9, seed=1)
+        plan = BuildPlan(algo=what.split("-")[1], batch=8, store="sharded",
+                         shards=3)
+    rank = degree_ranking(g)
+    LABEL_QUERY.launches = 0
+    card = build(g, rank, plan, device=cuda_device)
+    cpu = build(g, rank, plan, device="cpu")
+    if what == "directed":
+        for a, b in zip(list(card.l_out) + list(card.l_in),
+                        list(cpu.l_out) + list(cpu.l_in)):
+            assert torch.equal(a.cpu(), b)
+    else:
+        for (_, a), (_, b) in zip(card.store.shard_arrays(),
+                                  cpu.store.shard_arrays()):
+            for key in ("hubs", "dist", "count"):
+                assert np.array_equal(a[key], b[key])
+    rng = np.random.default_rng(0)
+    u, v = rng.integers(0, g.n, 500), rng.integers(0, g.n, 500)
+    cd, ch = card.query_with_hub(u, v)
+    pd, ph = cpu.query_with_hub(u, v)
+    assert np.array_equal(cd, pd) and np.array_equal(ch, ph)
+    svc = card.serve(mode="qlsn", batch_size=128)
+    svc.submit(u, v)
+    assert np.array_equal(svc.flush(), pd)
+    # one launch a directed query; K a stacked one, at most K routed
+    assert LABEL_QUERY.launches > 0

@@ -150,8 +150,16 @@ def test_resolve_validates_against_graph():
         MutationBatch([EdgeReweight(0, g.n - 1, 2.0)]).resolve(g)
     gd = interop.graph(rg.random_connected(16, extra_edges=10, seed=0,
                                            directed=True))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the reference's refusal, word for word
+    with pytest.raises(NotImplementedError,
+                       match=r"supports undirected graphs \(directed "
+                             r"repair is a ROADMAP item\)"):
         MutationBatch([EdgeDelete(0, 1)]).resolve(gd)
+    with pytest.raises(NotImplementedError, match="undirected") as ref_err:
+        rd.MutationBatch([rd.EdgeDelete(0, 1)]).resolve(ref_graph(gd))
+    with pytest.raises(NotImplementedError) as port_err:
+        MutationBatch([EdgeDelete(0, 1)]).resolve(gd)
+    assert str(port_err.value) == str(ref_err.value)
 
 
 def test_apply_and_resolve_equal_the_reference():

@@ -51,7 +51,9 @@ def test_port_tree_is_found():
     assert "src/repro_torch/kernels/minplus/minplus.py" in names
     for module in ("checkpoint/manager.py", "ft/inject.py", "ft/harness.py",
                    "dynamic/mutations.py", "dynamic/frontier.py",
-                   "dynamic/repair.py", "dynamic/journal.py"):
+                   "dynamic/repair.py", "dynamic/journal.py",
+                   "core/directed.py", "parallel/sharding.py",
+                   "index/store/sharded.py", "serve/routing.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(names) > 20
 
@@ -88,6 +90,38 @@ def test_cpu_path_launches_no_kernel():
     srv.submit(np.arange(g.n), np.arange(g.n)[::-1])
     out = srv.flush()
     assert np.isfinite(out).all()
+    assert [k.launches for k in kernels] == before == [0] * len(kernels)
+
+
+def test_directed_and_sharded_paths_default_to_the_card(no_cuda):
+    """The directed and sharded entry points refuse without CUDA, and
+    their CPU paths launch no kernel."""
+    from repro_torch.core.directed import plant_directed_chl
+    from repro_torch.graphs import random_connected
+    from repro_torch.index.store import DenseStore, ShardedStore
+    gd = random_connected(12, extra_edges=10, seed=0, directed=True)
+    g = grid_road(3, 4, seed=0)
+    rank = degree_ranking(g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plant_directed_chl(gd, degree_ranking(gd))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(g, rank, BuildPlan(algo="plant", store="sharded", shards=2))
+    shard = {"hubs": np.full((2, 1), -1, np.int32),
+             "dist": np.full((2, 1), np.inf, np.float32),
+             "count": np.zeros(2, np.int32)}
+    for store in (ShardedStore, DenseStore):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            store.from_shard_arrays([shard, shard])
+    kernels = all_kernels()
+    before = [k.launches for k in kernels]
+    di = build(gd, degree_ranking(gd), BuildPlan(algo="directed", batch=4),
+               device="cpu")
+    sh = build(g, rank, BuildPlan(algo="plant", store="sharded", shards=2),
+               device="cpu")
+    for idx in (di, sh):
+        srv = idx.serve(batch_size=8)
+        srv.submit(np.arange(idx.n), np.arange(idx.n)[::-1])
+        assert np.isfinite(srv.flush()).all()
     assert [k.launches for k in kernels] == before == [0] * len(kernels)
 
 

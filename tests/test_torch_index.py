@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import repro.graphs as rg
-from repro.graphs.ranking import betweenness_ranking, random_ranking
+from repro.graphs.ranking import (betweenness_ranking, degree_ranking,
+                                  random_ranking)
 from repro.index import BuildPlan as RefPlan
 from repro.index import CHLIndex as RefIndex
 from repro.index import build as ref_build
@@ -142,31 +143,49 @@ def test_load_rejects_corruption_and_foreign_rank(built, tmp_path):
         CHLIndex.load(d, device="cpu")
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """What the port does not build, load or serve yet raises, citing
+    its ROADMAP item; ``algo="directed"`` and ``store="sharded"``
+    build."""
     g, rank = _case("grid")
     pg = interop.graph(g)
-    for plan in (BuildPlan(algo="dgll"), BuildPlan(algo="plant",
-                                                    store="sharded")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(pg, rank, plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_build(pg, rank, algo="directed", device="cpu")
-    idx = build(pg, rank, BuildPlan(algo="plant"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.serve(mode="qfdl")
-    # apply() repairs dense stores of undirected graphs: a directed graph
-    # (item 8) and a sharded store (item 9) are refused
     gd = interop.graph(rg.random_connected(16, extra_edges=10, seed=0,
                                            directed=True))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        idx.apply(MutationBatch([]), graph=gd)
-
-    class ShardedLike:
-        kind = "sharded"
-    sharded = CHLIndex(ShardedLike(), plan=idx.plan, report=idx.report,
-                       rank=rank)
+    # now ported: a directed build and a sharded one
+    assert build(gd, degree_ranking(gd), BuildPlan(algo="directed"),
+                 device="cpu").directed
+    assert build(pg, rank, BuildPlan(algo="plant", store="sharded",
+                                     shards=2),
+                 device="cpu").store.kind == "sharded"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build(pg, rank, BuildPlan(algo="dgll"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run_build(pg, rank, algo="hybrid", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
-        sharded.apply(MutationBatch([]), graph=pg)
+        build(pg, rank, BuildPlan(algo="plant", store="compressed"),
+              device="cpu")
+    idx = build(pg, rank, BuildPlan(algo="plant"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        idx.serve(mode="qfdl")
+    # apply() on a directed index keeps the reference's refusal
+    idxd = build(gd, degree_ranking(gd), BuildPlan(algo="directed"),
+                 device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"apply\(\) currently supports undirected "
+                             "indices"):
+        idxd.apply(MutationBatch([]), graph=gd)
+    # spill/compressed residency (item 9) and v1/v2 artifacts (item 6)
+    path = idx.save(str(tmp_path / "idx"))
+    for store in ("spill", "compressed"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            CHLIndex.load(path, store=store, device="cpu")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest["version"] = 2
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        CHLIndex.load(path, device="cpu")
 
 
 def test_checkpointed_build_equals_plain_build(tmp_path):

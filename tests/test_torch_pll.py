@@ -117,9 +117,13 @@ def test_rankings_and_oracles_equal_reference():
         d, m = oracle.dijkstra_maxrank(pg, root, rank)
         rd, rm = ref_oracle.dijkstra_maxrank(g, root, rank)
         assert np.array_equal(d, rd) and np.array_equal(m, rm)
+    # a digraph reads its predecessors from its reverse, as the
+    # reference's oracle does
     gd = rg.random_connected(20, 15, seed=1, directed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        oracle.dijkstra_maxrank(interop.graph(gd), 0, rank[:20])
+    for root in (0, 11, 19):
+        d, m = oracle.dijkstra_maxrank(interop.graph(gd), root, rank[:20])
+        rd, rm = ref_oracle.dijkstra_maxrank(gd, root, rank[:20])
+        assert np.array_equal(d, rd) and np.array_equal(m, rm)
 
 
 def random_table(rng, n, L, inner_pad=False):
