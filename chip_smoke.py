@@ -69,6 +69,20 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    load as sharded, as dense and re-sharded to K = 3, each equal to its
    re-homing; ``apply`` of phase 3d's low-load batch on a sharded index
    equals the dense repair's table re-homed;
+3g. spill and compressed exactness: ``build(store="compressed",
+   codec="u16", quant_exact=True, shards=4)`` on phase 3's graph (PLaNT
+   streamed, then encoded); 65,536 served pairs (16 Dijkstra sources x
+   every target) equal scipy's Dijkstra, the stacked (dist, hub) equal
+   the plain version's on CPU copies of the store, hubs real
+   witnesses; a bf16 re-encoding's ``max_ulp_err`` equals the CPU
+   copy's and its card decode's; the compressed artifact loads
+   compressed and dense with the dense build's label sets; the dense
+   and a K = 4 artifact load ``store="spill"`` (memory-mapped) and
+   serve, routed and unrouted, equal to the dense store; a
+   ``spill.query`` io fault quarantines a shard, named by ``health()``;
+   a version-1 artifact loads dense and spilled, a version-2 manifest
+   loads; ``repro_torch.launch.serve_chl.main`` serves the compressed
+   artifact equal to the dense index;
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card;
@@ -100,6 +114,16 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    cross-shard minimum: dist and hub) and routed, equal to the dense
    store; the host insert, the accumulator's bytes and the stacked
    query's device time beside ``query_table``'s are logged;
+5d. spill and compressed road: phase 5c's store encoded by
+   ``CompressedStore.from_store(codec="u32", exact=True)`` (its
+   partition kept): distances equal the stacked sharded answer and
+   (dist, hub) the plain version's on the card; u16 exact raises
+   ``QuantRangeError`` (largest distance past 65,534); a bf16 encoding
+   logs its ``max_ulp_err``; the store saved (~1.3 GB) and loaded
+   ``store="spill"`` with its checksums verified answers routed equal
+   to the stacked query; logs the encode walls, label bytes, the
+   query's device time and the spill query's host gather, copy and
+   kernel;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
@@ -120,8 +144,9 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 
 Launch counts are set to 0 just before each of phases 3-7 (and each
 build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
-repair of 3f, the frontier and the road resume) and read just after it; a phase fails if a kernel of its
-path was not launched.
+repair of 3f, the spill loads of 3g and of 5d, the frontier and the road
+resume) and read just after it; a phase fails if a kernel of its path
+was not launched.
 Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
 state of the exactness graph (B = 16) and on the two mid-size states,
@@ -1846,17 +1871,8 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
     dd, _ = dense.query_device(u, v)
     require(torch.equal(rd, dd), "sharded road: routed != dense")
     sweeps = sum(r.sweeps for r in res.records)
-
-    def kernel_ms(fn, reps):
-        """(device ms a call of the label_query kernels alone, of all the
-        call's device work) from one profiler window."""
-        evs = device_events(fn, reps)
-        lq = [e for e in evs if DEVICE_NAMES["label_query"] in e.name]
-        return (covered(lq) / 1e3 / reps if lq else None,
-                covered(evs) / 1e3 / reps if evs else None)
-
-    stacked = kernel_ms(lambda: store.query_device(u, v), 50)
-    single = kernel_ms(lambda: dense.query_device(u, v), 50)
+    stacked = label_query_device_ms(lambda: store.query_device(u, v), 50)
+    single = label_query_device_ms(lambda: dense.query_device(u, v), 50)
     stacked_ev = time_ms(lambda: store.query_device(u, v), reps=50)
     single_ev = time_ms(lambda: dense.query_device(u, v), reps=50)
     routed_ev = time_ms(lambda: routed(road["u"], road["v"]), reps=10)
@@ -1886,7 +1902,7 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
         f"the function {bnd[0]:.4f} ms ({bnd[1]}), of the stacked design "
         f"(ids re-read a launch, K partials written and read back) "
         f"{design[0]:.4f} ms ({design[1]})")
-    return {"launches": counts, "stacked": {
+    return {"launches": counts, "store": store, "stacked": {
         "device_ms": stacked[0], "device_ms_all": stacked[1],
         "ms": stacked_ev, "plain_ms": plain_ms, "bound_ms": bnd[0],
         "bound_by": bnd[1], "design_bound_ms": design[0],
@@ -1894,6 +1910,452 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
         "routed_launches_per_call": routed_launches,
         "query_table_device_ms": single[0], "routed_ms": routed_ev,
         "insert_s": insert_s, "accumulator_bytes": acc_bytes}}
+
+
+# ------------------------------------------------ spill and compressed
+
+def write_v1_artifact(directory, table, rank, idx) -> None:
+    """A version-1 artifact in the reference's layout: one
+    ``arrays.npz`` (rank, hubs, dist, count) and a version-1 manifest."""
+    import numpy as np
+    from repro_torch.index.artifact import rank_hash
+    os.makedirs(directory)
+    np.savez(os.path.join(directory, "arrays.npz"), rank=rank,
+             hubs=table.hubs.cpu().numpy(), dist=table.dist.cpu().numpy(),
+             count=table.count.cpu().numpy())
+    manifest = {"format": "repro.index/chl", "version": 1,
+                "plan": idx.plan.to_dict(), "report": idx.report.to_dict(),
+                "rank_hash": rank_hash(rank), "directed": False,
+                "n": idx.n, "total_labels": idx.total_labels,
+                "als": idx.als}
+    with open(os.path.join(directory, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+
+
+def reduce_plain(parts):
+    """The cross-shard rule of the spill and compressed stores over
+    per-shard (dist, hub) pairs: the least distance, the lowest shard on
+    a tie (a strict ``<`` fold, as the reference's)."""
+    import torch
+    best = torch.full_like(parts[0][0], torch.inf)
+    hub = torch.full_like(parts[0][1], -1)
+    for d, h in parts:
+        take = d < best
+        hub = torch.where(take, h, hub)
+        best = torch.where(take, d, best)
+    return best, hub
+
+
+def compressed_plain(store, u, v):
+    """A compressed store's answers by its plain version on the same
+    device: each shard's rows gathered and decoded as the store does,
+    intersected by ``label_query_ref`` in chunks, then `reduce_plain`."""
+    import torch
+    from repro_torch.kernels.label_query import label_query_ref
+    parts = []
+    for k in range(store.num_shards):
+        hu, du = store.decode_rows(k, u)
+        hv, dv = store.decode_rows(k, v)
+        step = max(1, 2 ** 26 // max(1, hu.shape[1] ** 2))
+        ch = [label_query_ref(hu[i:i + step], du[i:i + step],
+                              hv[i:i + step], dv[i:i + step])
+              for i in range(0, u.shape[0], step)]
+        parts.append((torch.cat([c[0] for c in ch]),
+                      torch.cat([c[1] for c in ch])))
+    return reduce_plain(parts)
+
+
+def witness_ok(table, u, v, d, h) -> bool:
+    """Every hub is a real witness: both rows hold it at distances that
+    sum to the answer; ``-1`` exactly where the answer is not finite."""
+    import torch
+
+    def at(ids):
+        rows = table.hubs[ids] == h[:, None]
+        return torch.where(rows, table.dist[ids], torch.inf).amin(dim=1)
+
+    fin = torch.isfinite(d)
+    return bool(torch.equal((at(u) + at(v))[fin], d[fin])
+                and (h[~fin] == -1).all())
+
+
+def card_ulp(store, ref) -> int:
+    """The max f32 ulp error of ``store``'s distances against ``ref``'s,
+    decoded on the card slot by slot (both stores encode one partition,
+    so their sorted rows align): the device decoders' own reading of
+    the lossy codec's error."""
+    import torch
+    worst = 0
+    for k in range(store.num_shards):
+        ids = torch.arange(store.n, device=store.device)
+        _, a = store.decode_rows(k, ids)
+        _, b = ref.decode_rows(k, ids)
+        ok = torch.isfinite(b)
+        if ok.any():
+            diff = (a[ok].view(torch.int32).to(torch.int64)
+                    - b[ok].view(torch.int32).to(torch.int64)).abs()
+            worst = max(worst, int(diff.max()))
+    return worst
+
+
+def phase_spill_compressed_exactness(dev, kernels, exact) -> dict:
+    """The spill and compressed stores on phase 3's graph (n = 4096).
+
+    ``build(store="compressed", codec="u16", quant_exact=True, shards=4)``
+    streams PLaNT into the shards and encodes them; SERVE_Q served pairs
+    (16 Dijkstra sources x every target) equal scipy's Dijkstra, the
+    stacked answers (dist and hub) equal the plain version's on CPU
+    copies of the same store, and every hub is a real witness. A bf16
+    re-encoding's ``max_ulp_err`` equals the one computed from CPU copies
+    and the ulp error its codes show decoded on the card. The compressed
+    artifact loads compressed (codec kept) and dense with the dense
+    build's label sets; the dense and a sharded artifact load
+    memory-mapped (``store="spill"``) and serve, routed
+    and unrouted, equal to the dense store; an injected ``spill.query``
+    fault quarantines a shard and ``health()`` names it; a version-1
+    artifact loads dense and spilled, a version-2 manifest loads; and
+    ``repro_torch.launch.serve_chl.main`` serves the saved compressed
+    artifact."""
+    import shutil
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.core import labels as lbl
+    from repro_torch.ft import Fault, FaultPlan, faults
+    from repro_torch.index import BuildPlan, CHLIndex, build
+    from repro_torch.index.store import CompressedStore, SpillStore
+    from repro_torch.kernels.label_query import KERNEL
+    from repro_torch.launch import serve_chl
+    from repro_torch.serve import (QueryService, RoutedAnswer,
+                                   ShardUnavailableError)
+    g, rank = exact["graph"]
+    table, dense = exact["table"], exact["index"]
+    rng = np.random.default_rng(23)
+    src = np.sort(rng.choice(g.n, SERVE_Q // g.n, replace=False))
+    D = dijkstra(_scipy_csr(g), indices=src).astype(np.float32)
+    perm = rng.permutation(SERVE_Q)
+    u = np.repeat(src, g.n)[perm]
+    v = np.tile(np.arange(g.n), len(src))[perm]
+    want = D.reshape(-1)[perm]
+    u_d = torch.as_tensor(u, device=dev)
+    v_d = torch.as_tensor(v, device=dev)
+
+    plan = BuildPlan(algo="plant", batch=EXACT_BATCH, store="compressed",
+                     codec="u16", quant_exact=True, shards=EXACT_SHARDS)
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = build(g, rank, plan, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    store = idx.store
+    require(isinstance(store, CompressedStore) and store.exact
+            and store.device.type == "cuda",
+            "compressed exactness: not an exact compressed store on the card")
+    srv = idx.serve(mode="qlsn", batch_size=SERVE_Q)
+    before = KERNEL.launches
+    srv.submit(u, v)
+    served = srv.flush()
+    routed_launches = KERNEL.launches - before
+    before = KERNEL.launches
+    d, h = store.query_device(u_d, v_d)
+    stacked_launches = KERNEL.launches - before
+    counts = path_launches(kernels, ("ell_relax", "label_query"),
+                           "compressed exactness")
+    require(0 < routed_launches <= EXACT_SHARDS
+            and stacked_launches == EXACT_SHARDS,
+            f"compressed exactness: {routed_launches} routed, "
+            f"{stacked_launches} stacked launches")
+    require(np.array_equal(served, want),
+            "compressed exactness: served != Dijkstra")
+    require(np.array_equal(d.cpu().numpy(), want),
+            "compressed exactness: stacked dist != Dijkstra")
+    t1 = time.perf_counter()
+    cpu_copy = CompressedStore.from_encoded_shards(
+        [dict(a) for _, a in store.shard_arrays()], store.manifest_info(),
+        rank, device="cpu")
+    pd, ph = cpu_copy.query_device(u, v)
+    plain_s = time.perf_counter() - t1
+    require(torch.equal(d.cpu(), pd) and torch.equal(h.cpu(), ph),
+            "compressed exactness: card (dist, hub) != the plain version's "
+            "on CPU copies")
+    require(witness_ok(table, u_d, v_d, d, h),
+            "compressed exactness: a hub is not a witness")
+    _, dh = dense.store.query_device(u_d, v_d)
+    moved = int((h != dh).sum())
+
+    bf = CompressedStore.from_store(store, rank, codec="bf16")
+    bf_cpu = CompressedStore.from_store(cpu_copy, rank, codec="bf16")
+    ulp = card_ulp(bf, store)
+    require(ulp == bf.max_ulp_err == bf_cpu.max_ulp_err,
+            f"bf16: card ulp {ulp}, max_ulp_err {bf.max_ulp_err} (card "
+            f"store) and {bf_cpu.max_ulp_err} (CPU copy) differ")
+    got = bf.query(u, v)[0]
+    tol = 2 * np.float32(2.0 ** -8) * np.maximum(want, 1.0)
+    require(bool((np.abs(got - want) <= tol).all()),
+            "bf16: an answer outside the codec's documented bound")
+
+    scratch = ROOT / "build"                 # git-ignored, in the checkout
+    scratch.mkdir(exist_ok=True)
+    sets = lbl.to_numpy_sets(table)
+    dd, _ = dense.store.query_device(u_d, v_d)
+    dd = dd.cpu().numpy()
+    reset(kernels)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        cpath = idx.save(os.path.join(tmp, "comp"))
+        as_comp = CHLIndex.load(cpath, rank=rank, device=dev)
+        require(isinstance(as_comp.store, CompressedStore)
+                and as_comp.store.codec == "u16"
+                and lbl.to_numpy_sets(as_comp.table) == sets,
+                "compressed load: codec or label sets differ")
+        as_dense = CHLIndex.load(cpath, store="dense", device=dev)
+        require(lbl.to_numpy_sets(as_dense.table) == sets,
+                "compressed load as dense: label sets != the dense build's")
+        dpath = dense.save(os.path.join(tmp, "dense"))
+        spath = CHLIndex.load(cpath, store="sharded",
+                              device=dev).save(os.path.join(tmp, "sharded"))
+        spilled = {}
+        for what, p in (("dense", dpath), ("sharded", spath)):
+            sp_idx = CHLIndex.load(p, store="spill", device=dev)
+            require(isinstance(sp_idx.store, SpillStore)
+                    and sp_idx.store.is_mapped(),
+                    f"spill {what}: labels not memory-mapped")
+            for routed in (None, False):
+                s = sp_idx.serve(mode="qlsn", batch_size=SERVE_Q,
+                                 routed=routed)
+                s.submit(u, v)
+                require(np.array_equal(s.flush(), dd),
+                        f"spill {what} (routed={routed}) != dense")
+            spilled[what] = sp_idx
+        spill_counts = path_launches(kernels, ("label_query",),
+                                     "spill exactness")
+        ra = RoutedAnswer(spilled["sharded"].store)
+        w = int(np.nonzero(ra._has[0])[0][0])
+        with faults(FaultPlan({"spill.query": [Fault("io")]})):
+            try:
+                ra(w, w)
+                raise AssertionError("spill fault: no quarantine")
+            except ShardUnavailableError:
+                pass
+        svc = QueryService(ra, batch_size=4, drop_first=False)
+        svc.submit([w], [w])
+        svc.drain()
+        health = svc.health()
+        require(health["status"] == "degraded"
+                and 0 in health["quarantined_shards"],
+                f"spill fault: health {health}")
+        v1 = os.path.join(tmp, "v1")
+        write_v1_artifact(v1, table, rank, dense)
+        v1_dense = CHLIndex.load(v1, rank=rank, device=dev)
+        require(same_table(v1_dense.table, table), "v1: dense table differs")
+        v1_spill = CHLIndex.load(v1, store="spill", device=dev)
+        require(v1_spill.store.is_mapped()
+                and np.array_equal(v1_spill.query(u, v), dd),
+                "v1: spilled answers != dense")
+        v2 = os.path.join(tmp, "v2")
+        shutil.copytree(dpath, v2)
+        with open(os.path.join(v2, "manifest.json")) as f:
+            manifest = json.load(f)
+        manifest["version"] = 2
+        with open(os.path.join(v2, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        require(same_table(CHLIndex.load(v2, device=dev).table, table),
+                "v2: dense table differs")
+        t1 = time.perf_counter()
+        out = serve_chl.main(["--index", cpath, "--queries", "4096",
+                              "--batch-size", "1024", "--seed", "3"])
+        entry_s = time.perf_counter() - t1
+        erng = np.random.default_rng(3)
+        eu = erng.integers(0, g.n, 4096).astype(np.int32)
+        ev = erng.integers(0, g.n, 4096).astype(np.int32)
+        require(out["index"].store.kind == "compressed"
+                and np.array_equal(out["distances"], dense.query(eu, ev)),
+                "serve_chl: distances != the dense index's")
+    log(f"compressed exactness n={g.n} K={EXACT_SHARDS}: u16-exact build "
+        f"{wall:.3f} s (PLaNT dense {exact['wall']:.3f} s), "
+        f"{store.label_bytes():,} B of labels ({store.dtypes()}) against "
+        f"{store.total_labels * 8:,} B dense; {SERVE_Q} served pairs "
+        f"({len(src)} Dijkstra sources x every target, largest "
+        f"{float(D[np.isfinite(D)].max()):.0f}) == Dijkstra "
+        f"({routed_launches} routed launches), stacked "
+        f"({stacked_launches} launches) dist and "
+        f"hub == the plain version on CPU copies ({plain_s:.2f} s), hubs "
+        f"real witnesses ({moved} differ from the dense store's on ties); "
+        f"bf16 lossy max_ulp_err {bf.max_ulp_err} == the CPU copy's and its "
+        f"card decode's; "
+        f"compressed artifact loads compressed and dense with the dense "
+        f"build's label sets; launches {counts}")
+    log(f"spill exactness: dense and K={EXACT_SHARDS} artifacts mapped, "
+        f"served routed and unrouted == dense; spill.query io fault "
+        f"quarantined shard 0 ({health['quarantined_shards'][0][:40]}...); "
+        f"v1 dense and spilled, v2 loads; serve_chl.main on the "
+        f"compressed artifact {entry_s:.2f} s, distances == dense; "
+        f"launches {spill_counts}")
+    return {"launches": {k: counts[k] + spill_counts[k] for k in counts},
+            "wall": wall}
+
+
+def label_query_device_ms(fn, reps, top=0):
+    """(device ms a call of the label_query kernels alone, of all the
+    call's device work) from one profiler window; None where the window
+    holds no such event. With ``top``, also the ``top`` device events
+    by total time: (name, ms a call, launches a call)."""
+    evs = device_events(fn, reps)
+    lq = [e for e in evs if DEVICE_NAMES["label_query"] in e.name]
+    out = (covered(lq) / 1e3 / reps if lq else None,
+           covered(evs) / 1e3 / reps if evs else None)
+    if not top:
+        return out
+    by_name = {}
+    for e in evs:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                           / 1e3 / reps, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return out + ([(name[:60], ms, n / reps) for name, (ms, n) in ranked],)
+
+
+def phase_spill_compressed_road(dev, kernels, rank, road, sharded) -> dict:
+    """The road state's K = 4 hub shards (phase 5c's ``ShardedStore``,
+    its partition kept) encoded and spilled at full size.
+
+    ``CompressedStore.from_store(codec="u32", exact=True)``: on phase 5's
+    SERVE_Q pairs the distances equal the stacked sharded answer and the
+    hubs the plain version's (decoded rows through ``label_query_ref``
+    on the card); ``u16`` exact raises ``QuantRangeError``; bf16 lossy
+    logs its ``max_ulp_err``. The sharded store is saved and loaded
+    ``store="spill"`` (checksums verified); its routed answer equals the
+    stacked one. Logs the encode wall, label bytes against the sharded
+    store's, the query's device time against the stacked query's, and
+    the spill query split into host gather, copy and kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.index import (BuildPlan, BuildReport, CHLIndex,
+                                   QuantRangeError)
+    from repro_torch.index.store import CompressedStore
+    from repro_torch.kernels.label_query import KERNEL, query_rows
+    from repro_torch.serve import RoutedAnswer
+    store = sharded["store"]
+    u_np, v_np = road["u"], road["v"]
+    u = torch.as_tensor(u_np, device=dev)
+    v = torch.as_tensor(v_np, device=dev)
+    sd, sh = store.query_device(u, v)
+    t0 = time.perf_counter()
+    comp = CompressedStore.from_store(store, rank, codec="u32", exact=True)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    reset(kernels)
+    cd, ch = comp.query_device(u, v)
+    counts = path_launches(kernels, ("label_query",), "compressed road")
+    require(counts["label_query"] == ROAD_SHARDS,
+            f"compressed road: {counts['label_query']} launches a query")
+    require(torch.equal(cd, sd),
+            "compressed road: u32-exact dist != the stacked sharded answer")
+    pd, ph = compressed_plain(comp, u, v)
+    require(torch.equal(cd, pd) and torch.equal(ch, ph),
+            "compressed road: (dist, hub) != the plain version's")
+    require(witness_ok(road["table"], u, v, cd, ch),
+            "compressed road: a hub is not a witness")
+    moved = int((ch != sh).sum())
+    t0 = time.perf_counter()
+    try:
+        CompressedStore.from_store(store, rank, codec="u16", exact=True)
+        raise AssertionError("compressed road: u16 exact was not refused")
+    except QuantRangeError as e:
+        refusal = str(e).split(" at scale")[0]
+    refuse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf = CompressedStore.from_store(store, rank, codec="bf16")
+    bf_s = time.perf_counter() - t0
+    bf_ulp = bf.max_ulp_err
+    bf_bytes = bf.label_bytes()
+    del bf
+    comp_dev = label_query_device_ms(lambda: comp.query_device(u, v), 20,
+                                     top=4)
+    stacked_dev = label_query_device_ms(lambda: store.query_device(u, v), 20)
+    comp_ms = time_ms(lambda: comp.query_device(u, v), reps=20)
+    stacked_ms = time_ms(lambda: store.query_device(u, v), reps=20)
+    comp_bytes, sharded_bytes = comp.label_bytes(), store.label_bytes()
+    dtypes = comp.dtypes()
+    del comp, pd, ph
+
+    scratch = ROOT / "build"                 # git-ignored, in the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        idx = CHLIndex(store, plan=BuildPlan(algo="plant", batch=ROAD_BATCH,
+                                             cap=ROAD_CAP, store="sharded",
+                                             shards=ROAD_SHARDS),
+                       report=BuildReport(algo="plant", wall_s=0.0,
+                                          cap=ROAD_CAP,
+                                          total_labels=store.total_labels,
+                                          als=store.total_labels / store.n),
+                       rank=rank)
+        t0 = time.perf_counter()
+        path = idx.save(os.path.join(tmp, "road"))
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        t0 = time.perf_counter()
+        spill = CHLIndex.load(path, store="spill", device=dev)
+        load_s = time.perf_counter() - t0
+        require(spill.store.is_mapped(), "spill road: labels not mapped")
+        routed = RoutedAnswer(spill.store)
+        reset(kernels)
+        t0 = time.perf_counter()
+        rd = routed(u_np, v_np)
+        torch.cuda.synchronize()
+        routed_s = time.perf_counter() - t0
+        spill_counts = path_launches(kernels, ("label_query",), "spill road")
+        require(torch.equal(rd, sd), "spill road: routed != stacked")
+        # the unrouted query's parts, shard by shard
+        gather_s = copy_s = 0.0
+        rows = []
+        for k in range(ROAD_SHARDS):
+            t0 = time.perf_counter()
+            host = spill.store.gather_rows(k, u_np, v_np)
+            gather_s += time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows.append([torch.from_numpy(a).to(dev) for a in host])
+            torch.cuda.synchronize()
+            copy_s += time.perf_counter() - t0
+        kern = label_query_device_ms(
+            lambda: [query_rows(*r) for r in rows], 20)
+        sp_d, _ = spill.store.query_device(u_np, v_np)
+        require(torch.equal(sp_d, sd), "spill road: stacked != sharded")
+        row_bytes = sum(a.element_size() * a.numel() for r in rows for a in r)
+        del rows, spill, routed, idx
+    log(f"compressed road n={store.n} K={ROAD_SHARDS}: u32-exact encode "
+        f"{encode_s:.2f} s ({dtypes}), {comp_bytes:,} B of labels against "
+        f"the sharded store's {sharded_bytes:,} B "
+        f"({sharded_bytes / max(1, comp_bytes):.3f}x); {SERVE_Q} pairs: "
+        f"dist == stacked sharded, (dist, hub) == the plain version, hubs "
+        f"real witnesses ({moved} differ from the sharded store's); "
+        f"query device {fmt_ms(comp_dev[0])} kernels / {fmt_ms(comp_dev[1])} "
+        f"all (events {comp_ms:.4f} ms) against stacked "
+        f"{fmt_ms(stacked_dev[0])} / {fmt_ms(stacked_dev[1])} (events "
+        f"{stacked_ms:.4f} ms); its top device work a call "
+        f"{[(n, round(ms, 4), k) for n, ms, k in comp_dev[2]]}; u16 exact "
+        f"refused in {refuse_s:.2f} s "
+        f"({refusal}); bf16 lossy encode {bf_s:.2f} s, {bf_bytes:,} B, "
+        f"max_ulp_err {bf_ulp}; launches {counts}")
+    log(f"spill road: save {save_s:.2f} s ({size:,} B on disk), load "
+        f"spill with checksums {load_s:.2f} s, routed {routed_s * 1e3:.1f} "
+        f"ms == stacked ({spill_counts['label_query']} launches); unrouted "
+        f"{ROAD_SHARDS} shards: host gather {gather_s * 1e3:.2f} ms, copy "
+        f"{copy_s * 1e3:.2f} ms ({row_bytes:,} B), kernels "
+        f"{fmt_ms(kern[0])} device")
+    return {"launches": {k: counts[k] + spill_counts[k] for k in counts},
+            "compressed": {"encode_s": encode_s, "label_bytes": comp_bytes,
+                           "sharded_bytes": sharded_bytes,
+                           "device_ms": comp_dev[0],
+                           "device_ms_all": comp_dev[1], "ms": comp_ms,
+                           "stacked_device_ms_all": stacked_dev[1],
+                           "bf16_max_ulp_err": bf_ulp},
+            "spill": {"save_s": save_s, "load_s": load_s, "bytes": size,
+                      "routed_ms": routed_s * 1e3,
+                      "gather_ms": gather_s * 1e3, "copy_ms": copy_s * 1e3,
+                      "kernel_device_ms": kern[0]}}
 
 
 def directed_graph():
@@ -2421,6 +2883,7 @@ def main() -> int:
     add(phase_directed_exactness(dev, kernels)["launches"])
     add(phase_sharded_exactness(dev, kernels, exact, repair)["launches"])
     del repair
+    add(phase_spill_compressed_exactness(dev, kernels, exact)["launches"])
     g, rank = exact["graph"]
     lq = {"exactness": time_query_table(
         dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
@@ -2472,7 +2935,12 @@ def main() -> int:
     sharded_road = phase_sharded_road(dev, kernels, g, rank, road)
     add(sharded_road["launches"])
     lq["stacked_road"] = sharded_road["stacked"]
-    del g, rank, road, sharded_road
+    stores = phase_spill_compressed_road(dev, kernels, rank, road,
+                                         sharded_road)
+    add(stores["launches"])
+    lq["compressed_road"] = stores["compressed"]
+    lq["spill_road"] = stores["spill"]
+    del g, rank, road, sharded_road, stores
     torch.cuda.empty_cache()
 
     g, rank = random_graph()

@@ -175,9 +175,10 @@ def repair_index(idx, batch: MutationBatch, g, *, ckpt=None,
             "apply() currently supports undirected indices")
     if idx.store.kind not in ("dense", "sharded"):
         raise NotImplementedError(
-            f"apply() needs a writable dense or sharded store (got "
-            f"{idx.store.kind!r}); spill and compressed stores are not "
-            "ported yet (ROADMAP Queue 1, item 9)")
+            f"apply() needs a writable dense or sharded store "
+            f"(got {idx.store.kind!r}); reload with store='dense' or "
+            "'sharded' (spill/compressed residency is read-only — "
+            "re-home, repair, then save back compressed)")
     if g.n != idx.n:
         raise ValueError(f"graph has n={g.n} but the index has n={idx.n}")
 

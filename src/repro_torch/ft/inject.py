@@ -58,10 +58,10 @@ KNOWN_SITES = (
     "artifact.save.shard",    # CHLIndex.save, one shard file on disk
     "artifact.save.commit",   # CHLIndex.save, before the staged swap
     "artifact.load.shard",    # CHLIndex.load, before parsing a shard
-    "quant.encode.shard",     # compressed store (ROADMAP item 9): unplaced
-    "quant.decode.shard",     # compressed store (ROADMAP item 9): unplaced
+    "quant.encode.shard",     # CompressedStore._encode, one shard
+    "quant.decode.shard",     # CompressedStore.from_encoded_shards
     "repair.merge",           # dynamic.repair, before the store swap
-    "spill.query",            # spill store (ROADMAP item 9): unplaced
+    "spill.query",            # SpillStore.gather_rows, before the read
     "serve.answer",           # QueryService._launch, before the kernel
 )
 

@@ -8,17 +8,25 @@
     idx.save("run/index")
     idx = CHLIndex.load("run/index")
     build(g, rank, BuildPlan(algo="plant", store="sharded", shards=4))
+    build(g, rank, BuildPlan(algo="plant", store="compressed",
+                             codec="u16", quant_exact=True))
+    CHLIndex.load("run/index", store="spill")       # memory-mapped
     build(digraph, rank, BuildPlan(algo="directed"))  # L_out / L_in
 """
 
 from repro_torch.index.artifact import CHLIndex, rank_hash
 from repro_torch.index.build import build
 from repro_torch.index.plan import ALGOS, DISTRIBUTED_ALGOS, BuildPlan
+from repro_torch.index.quant import (DIST_CODECS, QuantizationError,
+                                     QuantPrecisionError, QuantRangeError)
 from repro_torch.index.report import BuildReport, OverflowEvent, SuperstepStat
-from repro_torch.index.store import (CorruptArtifactError, DenseStore,
-                                     LabelStore, ShardedStore)
+from repro_torch.index.store import (LOAD_STORE_KINDS, CompressedStore,
+                                     CorruptArtifactError, DenseStore,
+                                     LabelStore, ShardedStore, SpillStore)
 
 __all__ = ["ALGOS", "BuildPlan", "BuildReport", "CHLIndex",
-           "CorruptArtifactError", "DISTRIBUTED_ALGOS", "DenseStore",
-           "LabelStore", "OverflowEvent", "ShardedStore", "SuperstepStat",
-           "build", "rank_hash"]
+           "CompressedStore", "CorruptArtifactError", "DIST_CODECS",
+           "DISTRIBUTED_ALGOS", "DenseStore", "LOAD_STORE_KINDS",
+           "LabelStore", "OverflowEvent", "QuantPrecisionError",
+           "QuantRangeError", "QuantizationError", "ShardedStore",
+           "SpillStore", "SuperstepStat", "build", "rank_hash"]

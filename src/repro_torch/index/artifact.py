@@ -1,9 +1,9 @@
 """`CHLIndex` — the queryable, servable, persistable CHL artifact.
 
-One object owns the outcome of a build: a label store (dense or
-hub-sharded; a directed index holds the dense ``L_out``/``L_in`` pair
-instead), the plan that produced it, the build report and the vertex
-hierarchy::
+One object owns the outcome of a build: a label store (dense,
+hub-sharded, memory-mapped or compressed; a directed index holds the
+dense ``L_out``/``L_in`` pair instead), the plan that produced it, the
+build report and the vertex hierarchy::
 
     idx = build(g, rank, BuildPlan(algo="plant"))
     idx.query(u, v)                  # batched PPSD distances
@@ -18,22 +18,32 @@ move between the two packages both ways::
     <dir>/manifest.json   {"format": "repro.index/chl", "version": 3,
                            "plan", "report", "rank_hash", "directed",
                            "n", "total_labels", "als",
-                           "store": {"kind": "dense" | "sharded",
+                           "store": {"kind": "dense" | "sharded"
+                                             | "compressed",
                                      "shards", "shard_labels",
-                                     "shard_sha256"}}
+                                     "shard_sha256",
+                                     # compressed artifacts only:
+                                     "codec", "exact", "scale",
+                                     "dtype", "max_ulp_err"}}
     <dir>/rank.npy        the vertex hierarchy
     <dir>/shard_<k>.npz   hubs/dist/count of label shard k (a directed
-                          index: out_*/in_* of its one shard)
+                          index: out_*/in_* of its one shard; a
+                          compressed one: the encoded dhub/dcode/count,
+                          which the checksums cover)
 
-Loads verify every shard file against its recorded sha256 (unless
-``verify=False``), the per-shard label counts and the rank hash, and
-``load(store=, shards=)`` re-homes: ``"dense"`` merges the shards,
-``"sharded"`` (re-)partitions by hub rank. Writes go through a tmp dir
-and ``os.replace``: an overwrite never deletes the live artifact before
-the replacement is staged; shard writes retry transient I/O and pass
-the ``artifact.save.shard`` / ``artifact.save.commit`` fault sites, shard
-reads ``artifact.load.shard``. Spill and compressed residency (ROADMAP
-Queue 1, item 9) and the v1/v2 formats (item 6) are still to port.
+Version-1 artifacts (one ``arrays.npz``) and version-2 artifacts (no
+codec fields) load as the reference loads them, and a save migrates
+them to version 3. Loads verify every shard file against its recorded
+sha256 (unless ``verify=False``), the per-shard label counts and the
+rank hash, and ``load(store=, shards=, codec=, quant_exact=)`` re-homes:
+``"dense"`` merges the shards, ``"sharded"`` (re-)partitions by hub
+rank, ``"spill"`` memory-maps the shard files (labels larger than host
+RAM stay serveable), ``"compressed"`` encodes the labels through
+``repro_torch.index.quant``. Writes go through a tmp dir and
+``os.replace``: an overwrite never deletes the live artifact before the
+replacement is staged; shard writes retry transient I/O and pass the
+``artifact.save.shard`` / ``artifact.save.commit`` fault sites, shard
+reads ``artifact.load.shard``.
 """
 
 from __future__ import annotations
@@ -43,7 +53,6 @@ import json
 import os
 import shutil
 import weakref
-import zipfile
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -55,8 +64,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.inject import fault_site, with_retries
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport
-from repro_torch.index.store import (LOAD_STORE_KINDS, CorruptArtifactError,
-                                     DenseStore, LabelStore, ShardedStore,
+from repro_torch.index.store import (LOAD_STORE_KINDS, CompressedStore,
+                                     CorruptArtifactError, DenseStore,
+                                     LabelStore, ShardedStore, SpillStore,
+                                     open_npz_arrays, open_shard,
                                      shard_filename)
 from repro_torch.index.store.dense import as_index
 from repro_torch.serve import backends
@@ -125,7 +136,8 @@ class CHLIndex:
     @property
     def table(self) -> Optional[LabelTable]:
         """The dense label table behind the store (merged from its
-        shards for a sharded store); None for a directed index."""
+        shards, decoded for a compressed store: O(total label slots)
+        memory, for analysis, not serving); None for a directed index."""
         return None if self.directed else self.store.to_table()
 
     @property
@@ -174,11 +186,11 @@ class CHLIndex:
               breaker_reset_s: float = 30.0) -> QueryService:
         """The serving tier (:class:`repro_torch.serve.QueryService`)
         over this index's labels; see the service for the knobs.
-        ``routed`` overrides per-shard routing of a sharded store
-        (``None``: routed when it has several shards). A directed index
-        serves QLSN from its ``L_out``/``L_in`` pair, with the answer
-        cache built ``symmetric=False``: d(u->v) and d(v->u) never share
-        an entry.
+        ``routed`` overrides per-shard routing of a sharded, spill or
+        compressed store (``None``: routed when it has several shards).
+        A directed index serves QLSN from its ``L_out``/``L_in`` pair,
+        with the answer cache built ``symmetric=False``: d(u->v) and
+        d(v->u) never share an entry.
 
         The returned service stays registered (weakly) with this index:
         :meth:`apply` re-installs every live service's answer fn and
@@ -290,8 +302,10 @@ class CHLIndex:
         """Per-mode cluster label storage (Table 4) for ``q`` nodes
         (default: the build's) plus the store's resident
         ``label_bytes``, bytes per label, the ratio to dense f32 (8 B a
-        label) and, for a sharded store, the per-shard split; a directed
-        index reports the bytes of each direction."""
+        label) and, for a multi-shard store, the per-shard split (a
+        compressed store adds its codec, exactness, dtypes, scales and
+        max ulp error); a directed index reports the bytes of each
+        direction."""
         from repro_torch.core.query import (label_memory_bytes,
                                             mode_memory_totals)
         q = q or self.report.q
@@ -309,12 +323,20 @@ class CHLIndex:
         out["compression_ratio"] = (total * 8) / max(1, base)
         if hasattr(self.store, "shard_label_bytes"):
             out["shard_bytes"] = self.store.shard_label_bytes()
+        if isinstance(self.store, CompressedStore):
+            out["codec"] = self.store.codec
+            out["quant_exact"] = self.store.exact
+            out["dtypes"] = self.store.dtypes()
+            out["scale"] = self.store.scales
+            out["max_ulp_err"] = self.store.max_ulp_err
         return out
 
     # ---------------------------------------------------------- disk
 
     def save(self, directory: str) -> str:
-        """Atomically write the on-disk artifact; returns its path."""
+        """Atomically write the on-disk artifact (format version 3, one
+        shard resident at a time, encoded for a compressed store);
+        returns its path."""
         parent = os.path.dirname(os.path.abspath(directory)) or "."
         os.makedirs(parent, exist_ok=True)
         tmp = os.path.join(parent,
@@ -342,10 +364,15 @@ class CHLIndex:
             for k, arrs in self.store.shard_arrays():
                 shard_sha.append(write_shard(k, arrs))
                 shard_labels.append(int(np.sum(arrs["count"])))
-            store_info = {"kind": ("sharded" if self.store.num_shards > 1
-                                   else "dense"),
-                          "shards": self.store.num_shards,
+            compressed = isinstance(self.store, CompressedStore)
+            # encoded shards persist as they are; the codec fields let
+            # the loader decode them (or keep serving them encoded)
+            kind = ("compressed" if compressed else
+                    "sharded" if self.store.num_shards > 1 else "dense")
+            store_info = {"kind": kind, "shards": self.store.num_shards,
                           "shard_labels": shard_labels}
+            if compressed:
+                store_info.update(self.store.manifest_info())
         # per-file integrity, verified on load
         store_info["shard_sha256"] = shard_sha
         manifest = {
@@ -377,24 +404,28 @@ class CHLIndex:
     @classmethod
     def load(cls, directory: str, rank: Optional[np.ndarray] = None, *,
              store: Optional[str] = None, shards: Optional[int] = None,
+             codec: Optional[str] = None, quant_exact: bool = False,
              device: DeviceLike = None, verify: bool = True) -> "CHLIndex":
-        """Load a saved index onto ``device`` (default: the card; raises
-        without CUDA). When ``rank`` is given it must hash to the
-        manifest's ``rank_hash``. ``store`` overrides the saved
-        residency: ``"dense"`` merges the shards, ``"sharded"``
-        (re-)partitions by hub rank (``shards`` picks K; a sharded
-        artifact keeps its K unless ``shards`` differs). A directed index
-        loads dense only. ``verify`` (default on) re-hashes every shard
-        file against the manifest's sha256 and raises
-        :class:`CorruptArtifactError` on a mismatch; the per-shard
-        label-count check runs either way."""
+        """Load a saved index (any version) onto ``device`` (default: the
+        card; raises without CUDA). When ``rank`` is given it must hash
+        to the manifest's ``rank_hash``.
+
+        ``store`` overrides the saved residency: ``"dense"`` merges the
+        shards, ``"sharded"`` (re-)partitions by hub rank (``shards``
+        picks K; a sharded artifact keeps its K unless ``shards``
+        differs), ``"spill"`` memory-maps the shard files (each query's
+        rows are intersected on ``device``), ``"compressed"`` encodes
+        the labels (``codec``, default bf16 or the artifact's own;
+        ``quant_exact`` demands the validated bit-exact encoding and
+        raises a typed ``QuantizationError`` when the labels cannot
+        satisfy it). A compressed artifact cannot be memory-mapped; a
+        directed index loads dense only. ``verify`` (default on)
+        re-hashes every shard file against the manifest's sha256 and
+        raises :class:`CorruptArtifactError` on a mismatch; the
+        per-shard label-count check runs either way."""
         if store is not None and store not in LOAD_STORE_KINDS:
             raise ValueError(f"store {store!r} not one of "
                              f"{LOAD_STORE_KINDS}")
-        if store in ("spill", "compressed"):
-            raise NotImplementedError(
-                f"store={store!r} is not ported yet (ROADMAP Queue 1, "
-                "item 9); this port loads store='dense' or 'sharded'")
         dev = resolve_device(device)
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = json.load(f)
@@ -407,21 +438,13 @@ class CHLIndex:
             raise ValueError(
                 f"{directory}: index version {version} is newer than "
                 f"supported ({VERSION})")
-        info = manifest.get("store") or {}
-        if version < VERSION:
-            raise NotImplementedError(
-                f"{directory}: version-{version} artifacts do not load in "
-                "this port yet (ROADMAP Queue 1, item 6); it loads "
-                f"version {VERSION}")
-        if info.get("kind") not in ("dense", "sharded"):
-            raise NotImplementedError(
-                f"{directory}: a {info.get('kind')!r} artifact does not "
-                "load in this port yet (ROADMAP Queue 1, item 9)")
         plan = BuildPlan.from_dict(manifest["plan"])
         report = BuildReport.from_dict(manifest["report"])
         if verify:
             cls._verify_checksums(directory, manifest)
-        stored_rank = np.load(os.path.join(directory, "rank.npy"))
+        loader = cls._load_v1 if version < 2 else cls._load_v2
+        stored_rank, built = loader(directory, manifest,
+                                    spill=store == "spill", device=dev)
         if rank_hash(stored_rank) != manifest["rank_hash"]:
             raise CorruptArtifactError(
                 f"{directory}: stored rank does not match manifest "
@@ -430,72 +453,23 @@ class CHLIndex:
             raise ValueError(
                 f"{directory}: rank-hash mismatch — this index was "
                 "built under a different vertex hierarchy")
-        directed = bool(manifest.get("directed"))
-        expected = info.get("shard_labels")
-        shard_list = []
-        for k in range(int(info.get("shards", 1))):
-            arrs = cls._open_shard(directory, k)
-            got = (int(np.sum(arrs["out_count"]) + np.sum(arrs["in_count"]))
-                   if directed else int(np.sum(arrs["count"])))
-            if expected is not None and got != int(expected[k]):
-                raise CorruptArtifactError(
-                    f"{directory}: {shard_filename(k)} holds {got} labels "
-                    f"but the manifest recorded {int(expected[k])} "
-                    "(corrupt or mixed-version artifact)")
-            shard_list.append(arrs)
-        if directed:
+        if manifest["directed"]:
             if store not in (None, "dense"):
                 raise NotImplementedError(
                     "directed indices support only dense residency")
-            (s,) = shard_list
+            l_out, l_in = built
+            return cls(l_out=l_out, l_in=l_in, plan=plan, report=report,
+                       rank=stored_rank)
+        built = cls._rehome(built, store, stored_rank, shards,
+                            codec=codec, quant_exact=quant_exact)
+        return cls(built, plan=plan, report=report, rank=stored_rank)
 
-            def tbl(pfx: str) -> LabelTable:
-                return interop.label_table(s[f"{pfx}_hubs"], s[f"{pfx}_dist"],
-                                           s[f"{pfx}_count"], dev)
-
-            return cls(l_out=tbl("out"), l_in=tbl("in"), plan=plan,
-                       report=report, rank=stored_rank)
-        if info.get("kind") == "sharded" or len(shard_list) > 1:
-            built = ShardedStore.from_shard_arrays(shard_list, device=dev)
-        else:
-            built = DenseStore.from_shard_arrays(shard_list, device=dev)
-        return cls(cls._rehome(built, store, stored_rank, shards),
-                   plan=plan, report=report, rank=stored_rank)
-
-    @staticmethod
-    def _rehome(store: LabelStore, kind: Optional[str], rank: np.ndarray,
-                shards: Optional[int]) -> LabelStore:
-        """Convert a loaded store to the requested residency."""
-        if kind is None:
-            return store
-        if kind == "dense":
-            return (store if isinstance(store, DenseStore)
-                    else DenseStore(store.to_table()))
-        # "sharded": repartition unless the shard count already matches
-        if isinstance(store, ShardedStore) and shards in (
-                None, store.num_shards):
-            return store
-        K = shards or max(2, store.num_shards)
-        return ShardedStore.from_table(store.to_table(), rank, K)
-
-    @staticmethod
-    def _open_shard(directory: str, k: int) -> dict:
-        path = os.path.join(directory, shard_filename(k))
-        fault_site("artifact.load.shard", path=path)
-        if not os.path.exists(path):
-            raise CorruptArtifactError(
-                f"missing shard file {path} — artifact is incomplete")
-        try:
-            with np.load(path) as z:
-                return {name: z[name] for name in z.files}
-        except (OSError, KeyError, ValueError, EOFError,
-                zipfile.BadZipFile) as e:
-            raise CorruptArtifactError(
-                f"{directory}: {shard_filename(k)} is truncated or corrupt "
-                f"({e})") from e
+    # ------------------------------------------------- load internals
 
     @staticmethod
     def _verify_checksums(directory: str, manifest: dict) -> None:
+        """Refuse shard files whose bytes no longer hash to what the
+        manifest recorded (pre-checksum artifacts carry none)."""
         recorded = (manifest.get("store") or {}).get("shard_sha256")
         if not recorded:
             return
@@ -506,9 +480,110 @@ class CHLIndex:
             except FileNotFoundError as e:
                 raise CorruptArtifactError(
                     f"missing shard file {path} — artifact is "
-                    "incomplete") from e
+                    "incomplete (copy interrupted?)") from e
+            except OSError as e:
+                raise CorruptArtifactError(
+                    f"{directory}: {shard_filename(k)} unreadable "
+                    f"while verifying checksum ({e})") from e
             if got != want:
                 raise CorruptArtifactError(
                     f"{directory}: {shard_filename(k)} sha256 mismatch "
                     f"(manifest {want[:12]}…, on disk {got[:12]}…) — "
-                    "corrupt artifact")
+                    "corrupt artifact (torn write or bit rot)")
+
+    @staticmethod
+    def _load_v1(directory: str, manifest: dict, *, spill: bool, device):
+        """Version-1 monolithic ``arrays.npz`` -> dense residency, as
+        the reference loads it (``spill`` maps the members instead: one
+        big shard)."""
+        path = os.path.join(directory, "arrays.npz")
+        if spill and not manifest["directed"]:
+            arrs = open_npz_arrays(path, path)
+            return np.asarray(arrs["rank"]), SpillStore(
+                [{k: arrs[k] for k in ("hubs", "dist", "count")}],
+                device=device)
+        with np.load(path) as z:
+            arrs = {name: z[name] for name in z.files}
+
+        def tbl(pfx: str) -> LabelTable:
+            return interop.label_table(arrs[f"{pfx}hubs"], arrs[f"{pfx}dist"],
+                                       arrs[f"{pfx}count"], device)
+
+        if manifest["directed"]:
+            return arrs["rank"], (tbl("out_"), tbl("in_"))
+        return arrs["rank"], DenseStore(tbl(""))
+
+    @staticmethod
+    def _load_v2(directory: str, manifest: dict, *, spill: bool, device):
+        """Version-2/3 per-shard files (each label count checked against
+        the manifest) -> the saved residency, or memory maps."""
+        stored_rank = np.load(os.path.join(directory, "rank.npy"))
+        info = manifest.get("store") or {}
+        K = int(info.get("shards", 1))
+        expected = info.get("shard_labels")
+        directed = bool(manifest["directed"])
+        shards = []
+        for k in range(K):
+            arrs = open_shard(directory, k)
+            if expected is not None:
+                got = (int(np.sum(arrs["out_count"])
+                           + np.sum(arrs["in_count"]))
+                       if directed else int(np.sum(arrs["count"])))
+                if got != int(expected[k]):
+                    raise CorruptArtifactError(
+                        f"{directory}: {shard_filename(k)} holds {got} "
+                        f"labels but the manifest recorded "
+                        f"{int(expected[k])} (corrupt or mixed-version "
+                        "artifact)")
+            shards.append(arrs)
+        if directed:
+            (s,) = shards
+
+            def tbl(pfx: str) -> LabelTable:
+                return interop.label_table(s[f"{pfx}_hubs"], s[f"{pfx}_dist"],
+                                           s[f"{pfx}_count"], device)
+
+            return stored_rank, (tbl("out"), tbl("in"))
+        if info.get("kind") == "compressed":
+            if spill:
+                raise ValueError(
+                    "a compressed artifact cannot be memory-mapped "
+                    "(queries must dequantize); load with "
+                    "store='compressed' (encoded residency) or "
+                    "'dense'/'sharded' (decoded)")
+            return stored_rank, CompressedStore.from_encoded_shards(
+                shards, info, stored_rank, device=device)
+        if spill:
+            return stored_rank, SpillStore(shards, device=device)
+        if info.get("kind") == "sharded" or K > 1:
+            return stored_rank, ShardedStore.from_shard_arrays(
+                shards, device=device)
+        return stored_rank, DenseStore.from_shard_arrays(shards,
+                                                         device=device)
+
+    @staticmethod
+    def _rehome(store: LabelStore, kind: Optional[str], rank: np.ndarray,
+                shards: Optional[int], *, codec: Optional[str] = None,
+                quant_exact: bool = False) -> LabelStore:
+        """Convert a loaded store to the requested residency (on its
+        device)."""
+        if kind is None or kind == "spill":
+            return store          # spill was honoured at open time
+        if kind == "dense":
+            return (store if isinstance(store, DenseStore)
+                    else DenseStore(store.to_table()))
+        if kind == "compressed":
+            if isinstance(store, CompressedStore) \
+                    and codec in (None, store.codec) \
+                    and shards in (None, store.num_shards) \
+                    and (not quant_exact or store.exact):
+                return store      # already encoded as requested
+            return CompressedStore.from_store(
+                store, rank, codec=codec or "bf16", exact=quant_exact,
+                shards=shards)
+        # "sharded": repartition unless the shard count already matches
+        if isinstance(store, ShardedStore) and shards in (
+                None, store.num_shards):
+            return store
+        K = shards or max(2, store.num_shards)
+        return ShardedStore.from_table(store.to_table(), rank, K)

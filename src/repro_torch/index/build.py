@@ -15,9 +15,11 @@ streaming algorithm (PLaNT, pll-ref: emissions final on arrival)
 hub-partition each superstep's labels straight into per-shard arrays
 and never hold the dense ``[n, cap]`` table; GLL, LCC and paraPLL
 consult their global table while building, so they build dense and
-re-home. ``algo="directed"`` builds the dense ``L_out``/``L_in`` pair.
-The distributed algorithms and the compressed store raise
-``NotImplementedError`` naming their ROADMAP item.
+re-home. ``store="compressed"`` builds as ``"sharded"`` does (streamed
+for PLaNT/pll-ref) and encodes the shards afterwards; the report notes
+the codec. ``algo="directed"`` builds the dense ``L_out``/``L_in``
+pair. The distributed algorithms raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.engine.runner import unported_algo
 from repro_torch.index.artifact import CHLIndex
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport, OverflowEvent
-from repro_torch.index.store import DenseStore, ShardedStore
+from repro_torch.index.store import CompressedStore, DenseStore, ShardedStore
 from repro_torch.kernels.ell_relax import layout_plan, windowed_note
 
 
@@ -69,14 +71,12 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     if plan.algo == "directed" and plan.store != "dense":
         raise ValueError("directed builds support only store='dense' "
                          "(sharded directed serving is a ROADMAP item)")
-    if plan.store == "compressed":
-        raise NotImplementedError(
-            "store='compressed' is not ported yet (ROADMAP Queue 1, "
-            "item 9); this port builds store='dense' or 'sharded'")
     n = g.n
     cap = min(plan.cap or lbl.default_cap(n), n)
+    # compressed builds stream through the same hub-partitioned sink;
+    # the shards are encoded after construction
     streaming_shards = (_resolve_shards(plan, dev)
-                        if plan.store == "sharded"
+                        if plan.store in ("sharded", "compressed")
                         and plan.algo in STREAMING_ALGOS else None)
     notes = []
     # the host oracle (pll-ref) runs no sweeps
@@ -133,11 +133,26 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
                         rank=rank)
     if res.sink.kind == "sharded":       # streamed: the shards are the build
         store = ShardedStore.from_accumulator(res.sink.acc, device=dev)
+        if plan.store == "compressed":
+            store = CompressedStore.from_store(
+                store, rank, codec=plan.codec or "bf16",
+                exact=plan.quant_exact)
     elif plan.store == "sharded":
         store = ShardedStore.from_table(res.sink.table(), rank,
                                         _resolve_shards(plan, dev))
+    elif plan.store == "compressed":
+        store = CompressedStore.from_table(
+            res.sink.table(), rank, codec=plan.codec or "bf16",
+            exact=plan.quant_exact, shards=_resolve_shards(plan, dev))
     else:
         store = DenseStore(res.sink.table())
+    if isinstance(store, CompressedStore):
+        if store.exact:
+            notes.append(f"quant: codec={store.codec} exact "
+                         "(bit-identical round trip validated)")
+        else:
+            notes.append(f"quant: codec={store.codec} lossy, max "
+                         f"label ulp error {store.max_ulp_err}")
     total = store.total_labels
     report = BuildReport(total_labels=total, als=total / max(1, n),
                          **report_kw)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.index.quant.codecs import DIST_CODECS
+
 ALGOS = ("plant", "gll", "lcc", "parapll", "dgll", "hybrid",
          "plant-dist", "directed", "pll-ref")
 
@@ -19,9 +21,6 @@ DISTRIBUTED_ALGOS = ("dgll", "hybrid", "plant-dist")
 
 #: store kinds a plan may request ("spill" is a load-time residency)
 BUILD_STORE_KINDS = ("dense", "sharded", "compressed")
-
-#: distance codecs of the compressed store
-DIST_CODECS = ("bf16", "u16", "u32")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,16 @@
 """`LabelStore` — the label-residency protocol behind ``CHLIndex``.
 
 Everything outside ``index/store/`` (artifact save/load, serving) talks
-to this protocol, never to a backend's internal arrays. The port has
-the dense and the hub-sharded backends; the reference's spill and
-compressed backends are still to port (ROADMAP Queue 1, item 9).
+to this protocol, never to a backend's internal arrays, and dtype
+conversion of label arrays happens only in ``index/quant/`` and
+``index/store/``. The backends, as in the reference:
+
+- :class:`~repro_torch.index.store.dense.DenseStore`: one table;
+- :class:`~repro_torch.index.store.sharded.ShardedStore`: K hub shards;
+- :class:`~repro_torch.index.store.spill.SpillStore`: memory-mapped
+  shard files on the host, each query's rows intersected on the device;
+- :class:`~repro_torch.index.store.compressed.CompressedStore`: encoded
+  hub deltas and distance codes on the device, decoded per query.
 """
 
 from __future__ import annotations
@@ -20,8 +27,7 @@ class CorruptArtifactError(ValueError):
     from misuse (wrong rank, wrong store kind)."""
 
 
-#: residencies ``CHLIndex.load(store=...)`` names (the reference's list;
-#: "spill" and "compressed" raise in this port)
+#: residencies ``CHLIndex.load(store=...)`` may request
 LOAD_STORE_KINDS = ("dense", "sharded", "spill", "compressed")
 
 
@@ -64,8 +70,10 @@ class LabelStore(Protocol):
         ...
 
     def shard_arrays(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
-        """Yield ``(k, {"hubs", "dist", "count"})`` per shard as host
-        arrays — the save path."""
+        """Yield ``(k, arrays)`` per shard as host arrays, one shard
+        resident at a time — the save path. Dense, sharded and spill
+        stores yield ``{"hubs", "dist", "count"}``; a compressed store
+        its encoded ``{"dhub", "dcode", "count"}``."""
         ...
 
 

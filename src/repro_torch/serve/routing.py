@@ -1,6 +1,7 @@
-"""Per-shard query routing for partitioned label stores.
+"""Per-shard query routing for partitioned label stores (sharded, spill
+and compressed).
 
-A full sharded answer reduces over all K shards for every query, but
+A full answer reduces over all K shards for every query, but
 shard k can contribute to ``(u, v)`` only when both endpoints hold at
 least one label whose hub k owns; otherwise its partial minimum is +inf.
 The routing table is the store's per-shard label counts
@@ -8,10 +9,13 @@ The routing table is the store's per-shard label counts
 partial query only over the queries active in it, on the store's
 device, and folds the partials back with a minimum. Dropped (query,
 shard) pairs contribute only +inf to the f32 minimum, so the routed
-answer equals the full reduction bit for bit.
+answer equals the full reduction bit for bit. For a spill store this
+is also an I/O saving: only the owning shards' mapped files are paged
+in at all.
 
 Degradation: a shard whose read fails (``OSError`` or ``ValueError``:
-a refused launch, a corrupt segment) is quarantined, recorded in
+a refused launch, a corrupt segment, a spill shard's mapped page gone
+bad) is quarantined, recorded in
 :attr:`RoutedAnswer.quarantined` and never retried; queries that need it
 raise :class:`ShardUnavailableError` (an unreadable shard surfaces as an
 error, never as a too-large distance), and the service's ``health()``

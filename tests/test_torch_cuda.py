@@ -34,7 +34,13 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   from ``L_in``) equals the plain version in one launch; a sharded
   store's stacked query (one launch a shard, then a minimum over the
   shards) equals the dense query and takes the lowest shard's hub on a
-  tie; directed and sharded builds on the card equal the CPU's.
+  tie; directed and sharded builds on the card equal the CPU's;
+- spill and compressed stores on the card (rows gathered, decoded for a
+  compressed store, then one operand-form launch a shard) equal the
+  same stores on the CPU, dist and hub, for every codec, stacked and
+  routed; the u8/u16/u32 code gathers and decoders on the card equal
+  numpy's (u32 codes past 2^24 included); a compressed card build
+  equals the CPU's encoded shards.
 """
 
 import copy
@@ -720,3 +726,104 @@ def test_directed_and_sharded_builds_on_card_equal_cpu(cuda_device, what):
     assert np.array_equal(svc.flush(), pd)
     # one launch a directed query; K a stacked one, at most K routed
     assert LABEL_QUERY.launches > 0
+
+
+@pytest.mark.parametrize("codec,exact", [("bf16", False), ("u16", True),
+                                         ("u16", False), ("u32", True),
+                                         ("u32", False)])
+@pytest.mark.parametrize("shards", [1, 3])
+def test_compressed_store_on_card_equals_cpu(cuda_device, codec, exact,
+                                             shards):
+    """The same encoded shards on the card and on the CPU answer equal
+    (dist, hub), stacked and routed; a card build encodes the same
+    shards as the CPU build."""
+    from repro_torch.index.store import CompressedStore
+    from repro_torch.serve import RoutedAnswer
+    g = grid_road(12, 12, seed=3)
+    rank = degree_ranking(g)
+    plan = BuildPlan(algo="plant", batch=8, store="compressed", codec=codec,
+                     quant_exact=exact, shards=shards)
+    cpu = build(g, rank, plan, device="cpu")
+    card = build(g, rank, plan, device=cuda_device)
+    assert isinstance(card.store, CompressedStore)
+    assert card.store.device.type == "cuda"
+    for (_, a), (_, b) in zip(card.store.shard_arrays(),
+                              cpu.store.shard_arrays()):
+        for key in ("dhub", "dcode", "count"):
+            assert a[key].dtype == b[key].dtype
+            assert np.array_equal(a[key], b[key])
+    assert card.store.dtypes() == cpu.store.dtypes()
+    rng = np.random.default_rng(2)
+    u, v = rng.integers(0, g.n, 3000), rng.integers(0, g.n, 3000)
+    before = LABEL_QUERY.launches
+    cd, ch = card.query_with_hub(u, v)
+    assert LABEL_QUERY.launches == before + shards
+    pd, ph = cpu.query_with_hub(u, v)
+    assert np.array_equal(cd, pd) and np.array_equal(ch, ph)
+    if shards > 1:
+        routed = RoutedAnswer(card.store)(u, v)
+        assert np.array_equal(routed.cpu().numpy(), pd)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_spill_store_on_card_equals_cpu(cuda_device, shards, tmp_path):
+    """A spill store intersecting on the card (host gather, copy, one
+    operand-form launch a shard) equals the CPU spill store and the
+    dense store."""
+    from repro_torch.index import CHLIndex
+    g = random_connected(300, 400, seed=2, max_w=3)      # tie-heavy
+    rank = degree_ranking(g)
+    idx = build(g, rank, BuildPlan(algo="plant", batch=8, store="sharded",
+                                   shards=shards), device="cpu")
+    path = idx.save(str(tmp_path / "idx"))
+    card = CHLIndex.load(path, store="spill", device=cuda_device)
+    cpu = CHLIndex.load(path, store="spill", device="cpu")
+    assert card.store.is_mapped()
+    rng = np.random.default_rng(5)
+    u, v = rng.integers(0, g.n, 4000), rng.integers(0, g.n, 4000)
+    before = LABEL_QUERY.launches
+    cd, ch = card.query_with_hub(u, v)
+    assert LABEL_QUERY.launches == before + shards
+    pd, ph = cpu.query_with_hub(u, v)
+    assert np.array_equal(cd, pd) and np.array_equal(ch, ph)
+    assert np.array_equal(cd, idx.query(u, v))
+    svc = card.serve(mode="qlsn", batch_size=512)
+    svc.submit(u, v)
+    assert np.array_equal(svc.flush(), pd)
+
+
+def test_code_gathers_and_decoders_on_card_equal_numpy(cuda_device):
+    """Storage codes held on the card (u8 as uint8, u16/u32 as the
+    int16/int32 tensor of their bits) gather and decode equal to numpy,
+    u32 codes past 2^24 rounded to nearest even."""
+    from repro_torch.index import quant
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 500, 2000)
+    ids_d = torch.as_tensor(ids, device=cuda_device)
+    for dt in (np.uint8, np.uint16, np.uint32):
+        a = rng.integers(0, np.iinfo(dt).max, (500, 7),
+                         dtype=np.uint64).astype(dt)
+        a[::7, 3] = np.iinfo(dt).max
+        t = quant.code_tensor(a, cuda_device)
+        got = quant.code_array(t[ids_d], dt)
+        assert got.dtype == a.dtype and np.array_equal(got, a[ids])
+        for codec in {np.uint16: ("bf16", "u16"), np.uint32: ("u32",)}.get(
+                dt, ()):
+            for scale in (1.0, float(np.float32(6.86e6 / 0xFFFFFFFE))):
+                want = quant.decode_dist_np(a[ids], codec, scale)
+                dec = quant.decode_dist_torch(t[ids_d], codec, scale)
+                assert np.array_equal(dec.cpu().numpy().view(np.int32),
+                                      want.view(np.int32))
+    rank, n = rng.permutation(300), 300
+    order, oi = quant.order_permutation(rank)
+    hubs = rng.integers(0, n, (n, 5)).astype(np.int32)
+    count = rng.integers(0, 6, n).astype(np.int32)
+    hubs[np.arange(5)[None, :] >= count[:, None]] = -1
+    deltas, _, cnt = quant.delta_encode_rows(
+        hubs, np.ones((n, 5), np.float32), count, oi)
+    dev = quant.delta_decode_rows_torch(
+        quant.code_tensor(deltas, cuda_device)[ids_d[ids_d < n]],
+        torch.as_tensor(cnt, device=cuda_device)[ids_d[ids_d < n]],
+        torch.as_tensor(order, device=cuda_device))
+    want = quant.delta_decode_rows_np(deltas, cnt, order)[ids[ids < n]]
+    assert np.array_equal(dev.cpu().numpy(), want)

@@ -4,7 +4,9 @@
   anything of the reference package ``repro``;
 - the entry points default to the card and raise without CUDA instead
   of running on the CPU;
-- CPU tensors never launch a kernel (the launch counts stay at 0).
+- CPU tensors never launch a kernel (the launch counts stay at 0);
+- narrow storage dtypes of label arrays appear only in the codec layer
+  (``index/quant/`` and ``index/store/``).
 """
 
 import ast
@@ -53,7 +55,10 @@ def test_port_tree_is_found():
                    "dynamic/mutations.py", "dynamic/frontier.py",
                    "dynamic/repair.py", "dynamic/journal.py",
                    "core/directed.py", "parallel/sharding.py",
-                   "index/store/sharded.py", "serve/routing.py"):
+                   "index/store/sharded.py", "serve/routing.py",
+                   "index/quant/codecs.py", "index/quant/deltas.py",
+                   "index/store/spill.py", "index/store/compressed.py",
+                   "serve/loadgen.py", "launch/serve_chl.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(names) > 20
 
@@ -78,6 +83,18 @@ def test_entry_points_refuse_to_run_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         CHLIndex.load(path)
     assert CHLIndex.load(path, device="cpu").n == g.n
+    # the spill and compressed residencies and the serving launcher
+    for store in ("spill", "compressed"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CHLIndex.load(path, store=store)
+        assert CHLIndex.load(path, store=store, device="cpu").n == g.n
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(g, rank, BuildPlan(algo="plant", store="compressed"))
+    from repro_torch.launch import serve_chl
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_chl.main(["--index", path, "--queries", "8"])
+    assert serve_chl.main(["--index", path, "--queries", "8",
+                           "--device", "cpu"])["stats"]["queries"] == 8
 
 
 def test_cpu_path_launches_no_kernel():
@@ -130,3 +147,55 @@ def test_kernel_sources_are_in_the_package():
         assert k.source.is_file() and k.source.suffix == ".cu"
         text = k.source.read_text()
         assert f"{k.name}_launch" in text and "Replaces:" in text
+
+
+#: storage-dtype tokens banned outside the codec layer
+_BANNED = ("uint8", "uint16", "uint32", "bfloat16", "float16",
+           "bitcast_convert_type")
+
+#: label-touching packages of the port the ban applies to
+_LABEL_CODE = tuple(f"src/repro_torch/{d}/" for d in
+                    ("serve", "engine", "dynamic", "parallel", "index"))
+
+#: the codec layer itself — the only place storage dtypes may appear
+_CODEC_LAYER = ("src/repro_torch/index/quant/",
+                "src/repro_torch/index/store/")
+
+
+def test_no_label_dtype_casts_outside_codec_layer():
+    """The port's counterpart of the reference's rule: narrow storage
+    dtypes of label arrays live only in index/quant and index/store, so
+    codec logic cannot leak into serve/engine code."""
+    offenders = []
+    for path in PORT_FILES:
+        rel = path.relative_to(ROOT).as_posix()
+        if not rel.startswith(_LABEL_CODE) or rel.startswith(_CODEC_LAYER):
+            continue
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if any(tok in line for tok in _BANNED):
+                offenders.append(f"{rel}:{i}: {line.strip()}")
+    assert not offenders, (
+        "storage-dtype use on label code outside the codec layer:\n  "
+        + "\n  ".join(offenders))
+    scanned = [p for p in PORT_FILES
+               if p.relative_to(ROOT).as_posix().startswith(_CODEC_LAYER)]
+    assert any("uint16" in p.read_text() for p in scanned)
+
+
+def test_spill_and_compressed_paths_launch_no_kernel_on_the_cpu(tmp_path):
+    """CPU spill and compressed stores answer through the plain version:
+    no launch count moves."""
+    kernels = all_kernels()
+    before = [k.launches for k in kernels]
+    g = grid_road(4, 5, seed=1)
+    rank = degree_ranking(g)
+    idx = build(g, rank, BuildPlan(algo="plant", batch=4, store="sharded",
+                                   shards=2), device="cpu")
+    path = idx.save(str(tmp_path / "idx"))
+    u = np.arange(g.n)
+    for store in ("spill", "compressed"):
+        loaded = CHLIndex.load(path, store=store, device="cpu")
+        srv = loaded.serve(batch_size=8)
+        srv.submit(u, u[::-1])
+        assert np.array_equal(srv.flush(), idx.query(u, u[::-1]))
+    assert [k.launches for k in kernels] == before == [0] * len(kernels)

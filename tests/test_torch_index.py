@@ -144,26 +144,31 @@ def test_load_rejects_corruption_and_foreign_rank(built, tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the port does not build, load or serve yet raises, citing
-    its ROADMAP item; ``algo="directed"`` and ``store="sharded"``
-    build."""
+    """What the port does not build or serve yet raises, citing its
+    ROADMAP item (item 11: the distributed algorithms and qfdl/qdol),
+    and the reference's permanent refusals stay: a compressed artifact
+    is not memory-mapped, ``apply()`` needs a writable store and an
+    undirected index. Directed, sharded and compressed builds, spill and
+    compressed loads and version-2 artifacts now work."""
+    from repro_torch.index.store import CompressedStore, SpillStore
     g, rank = _case("grid")
     pg = interop.graph(g)
     gd = interop.graph(rg.random_connected(16, extra_edges=10, seed=0,
                                            directed=True))
-    # now ported: a directed build and a sharded one
+    # now ported: directed, sharded and compressed builds
     assert build(gd, degree_ranking(gd), BuildPlan(algo="directed"),
                  device="cpu").directed
     assert build(pg, rank, BuildPlan(algo="plant", store="sharded",
                                      shards=2),
                  device="cpu").store.kind == "sharded"
+    comp = build(pg, rank, BuildPlan(algo="plant", store="compressed",
+                                     codec="u16", quant_exact=True),
+                 device="cpu")
+    assert isinstance(comp.store, CompressedStore)
     with pytest.raises(NotImplementedError, match="item 11"):
         build(pg, rank, BuildPlan(algo="dgll"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         run_build(pg, rank, algo="hybrid", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build(pg, rank, BuildPlan(algo="plant", store="compressed"),
-              device="cpu")
     idx = build(pg, rank, BuildPlan(algo="plant"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         idx.serve(mode="qfdl")
@@ -174,18 +179,28 @@ def test_unported_paths_raise(tmp_path):
                        match=r"apply\(\) currently supports undirected "
                              "indices"):
         idxd.apply(MutationBatch([]), graph=gd)
-    # spill/compressed residency (item 9) and v1/v2 artifacts (item 6)
+    # spill and compressed residency load; a version-2 manifest loads
     path = idx.save(str(tmp_path / "idx"))
-    for store in ("spill", "compressed"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            CHLIndex.load(path, store=store, device="cpu")
+    spilled = CHLIndex.load(path, store="spill", device="cpu")
+    assert isinstance(spilled.store, SpillStore)
+    assert isinstance(CHLIndex.load(path, store="compressed",
+                                    device="cpu").store, CompressedStore)
+    # the reference's permanent refusals: apply() on a read-only
+    # residency, spill of a compressed artifact
+    for ro in (spilled, comp):
+        with pytest.raises(NotImplementedError, match="read-only"):
+            ro.apply(MutationBatch([]), graph=pg)
+    cpath = comp.save(str(tmp_path / "comp"))
+    with pytest.raises(ValueError, match="cannot be memory-mapped"):
+        CHLIndex.load(cpath, store="spill", device="cpu")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     manifest["version"] = 2
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        CHLIndex.load(path, device="cpu")
+    u = np.arange(g.n)
+    assert np.array_equal(CHLIndex.load(path, device="cpu").query(u, u[::-1]),
+                          idx.query(u, u[::-1]))
 
 
 def test_checkpointed_build_equals_plain_build(tmp_path):
