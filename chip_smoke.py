@@ -83,6 +83,20 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    a version-1 artifact loads dense and spilled, a version-2 manifest
    loads; ``repro_torch.launch.serve_chl.main`` serves the compressed
    artifact equal to the dense index;
+3h. distributed exactness: on phase 3's graph, ``build(g, rank)`` with
+   the default plan (the hybrid: eta = 16, Ψ_th from the mesh size) on
+   the card's one-node mesh; the hybrid (eta = 16, Ψ_th below 1, so it
+   switches to DGLL after its first PLaNT superstep, chl_common's
+   compact budget), dgll and plant-dist on 8 logical nodes of the card
+   (``NodeMesh.logical(8, "cuda")``); each merged table equals phase 3's
+   PLaNT table as label sets, no PLaNT superstep calls a collective and
+   every DGLL superstep calls at least one; the hybrid's 65,536 pairs
+   (16 Dijkstra sources x every target) through ``serve`` in qlsn, qfdl
+   and qdol equal Dijkstra; plant-dist with node 1 silent after
+   superstep 2 and a heartbeat monitor of patience 1 declares it lost,
+   re-plants its tail on the survivors and lands the same label sets;
+   the 8-node hybrid on the card equals the CPU's (partitions, merged
+   table, records) on grid_road(24, 24);
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card;
@@ -100,20 +114,22 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    to phase 5's table; logs each step's bytes, the save (copy to the
    host, npz write), the restore and the fingerprint hash;
 5b. GLL road superstep: ``GLLPolicy`` (alpha = 4) through
-   ``engine.run`` on phase 5's graph, batch, cap and 8 roots (the
-   schedule cut to them), whose table must equal phase 5's PLaNT table;
-   then a profiler window over its second batch and the flush, split
+   ``engine.run`` on phase 5's graph, batch, cap and first batch of 4
+   roots (the schedule cut to them), whose table must equal phase 5's
+   PLaNT table restricted to those roots; then a profiler window over a
+   fresh run's batch and flush, split
    into the relaxation kernel, the sweep loop's mask/frontier ops, the
    distance-query cover (``hub_distance_map`` + ``cover_distance``)
    and ``clean_superstep``;
-5c. sharded road: phase 5's superstep (same graph, roots, batch and
-   cap) streamed into 4 hub shards through ``StreamingShardSink``
-   (each shard two of the 8 trees); the shards equal
-   ``hub_partition_arrays`` of phase 5's table, and a ``ShardedStore``
-   on the card answers phase 5's pairs stacked (4 launches and one
-   cross-shard minimum: dist and hub) and routed, equal to the dense
-   store; the host insert, the accumulator's bytes and the stacked
-   query's device time beside ``query_table``'s are logged;
+5c. sharded road: phase 5's first batch of 4 roots (same graph, batch
+   and cap) streamed into 4 hub shards through ``StreamingShardSink``
+   (each shard one of the 4 trees); the shards equal
+   ``hub_partition_arrays`` of phase 5's table restricted to those
+   roots, and a ``ShardedStore`` on the card answers phase 5's pairs
+   stacked (4 launches and one cross-shard minimum: dist and hub) and
+   routed, equal to that table's dense store; the host insert, the
+   accumulator's bytes and the stacked query's device time beside
+   ``query_table``'s are logged;
 5d. spill and compressed road: phase 5c's store encoded by
    ``CompressedStore.from_store(codec="u32", exact=True)`` (its
    partition kept): distances equal the stacked sharded answer and
@@ -124,6 +140,17 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    to the stacked query; logs the encode walls, label bytes, the
    query's device time and the spill query's host gather, copy and
    kernel;
+5e. distributed road: the hybrid on chl_road's configuration (batch 4,
+   cap 8, hc_cap 32, compact 4096) over phase 5's graph on 2 logical
+   nodes: eta = 2 common trees (the table on the card, then the
+   prologue), one HC-pruned PLaNT superstep of 4 trees a node and one
+   DGLL superstep of 3 (the queues cut to 8 roots a node), whose emissions
+   outgrow the compact budget, so it completes by the dense broadcast;
+   the node steps sweep through the windowed kernel only; no collective
+   in a PLaNT superstep, at least one in the DGLL superstep; 65,536
+   pairs from the 16 processed roots (the top ranks: exact) answer
+   qlsn == qfdl == qdol, all finite, and equal scipy's Dijkstra from
+   two roots; then a profiler window over 16 HC-pruned sweeps;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
@@ -144,9 +171,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 
 Launch counts are set to 0 just before each of phases 3-7 (and each
 build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
-repair of 3f, the spill loads of 3g and of 5d, the frontier and the road
-resume) and read just after it; a phase fails if a kernel of its path
-was not launched.
+repair of 3f, the spill loads of 3g and of 5d, each build and the query
+modes of 3h, the frontier and the road resume) and read just after it;
+a phase fails if a kernel of its path was not launched. Each log line
+carries the seconds since the start.
 Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
 state of the exactness graph (B = 16) and on the two mid-size states,
@@ -195,16 +223,22 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-ROAD_ROWS = ROAD_COLS = 4096      # repro/configs/chl_road.py: n = 16,777,216
-ROAD_TREES, ROAD_BATCH, ROAD_CAP = 8, 4, 8
+from repro_torch.configs import chl_road, chl_scalefree  # noqa: E402
+
+ROAD = chl_road.CONFIG            # n = 16,777,216 on a square grid
+ROAD_ROWS = ROAD_COLS = int(round(ROAD.n ** 0.5))
+ROAD_TREES, ROAD_BATCH, ROAD_CAP = (ROAD.trees_per_node, ROAD.batch,
+                                    ROAD.cap)
 # the paper's shared-memory builds on the exactness graph (3b), and
 # BuildPlan's default GLL cleaning threshold, alpha * n labels
 SHARED_ALGOS = ("pll-ref", "gll", "lcc", "parapll")
 GLL_ALPHA = 4.0
-# repro/configs/chl_scalefree.py's n, batch, trees_per_node and cap on
-# the repo's random graph (its ELL width 64 needs hub splitting)
-RANDOM_N = RANDOM_EXTRA = 4_194_304
-RANDOM_TREES, RANDOM_BATCH, RANDOM_CAP = 8, 4, 32
+# chl_scalefree's n, batch, trees_per_node and cap on the repo's random
+# graph (its ELL width 64 needs hub splitting)
+SCALEFREE = chl_scalefree.CONFIG
+RANDOM_N = RANDOM_EXTRA = SCALEFREE.n
+RANDOM_TREES, RANDOM_BATCH, RANDOM_CAP = (SCALEFREE.trees_per_node,
+                                          SCALEFREE.batch, SCALEFREE.cap)
 DENSE_N, DENSE_ROOTS = 32_768, 64
 EXACT_BATCH = 16
 # the dense route's largest states at the road batch of 4: two source
@@ -215,17 +249,32 @@ MID_SWEEPS = {"road-mid": 128, "random-mid": 8}
 SERVE_Q = 65_536
 # the directed exactness graph (random_connected(4096, 8192 extra arcs,
 # directed)) and the hub shards of the sharded phases: K = 4 on the road
-# state gives each shard two of the 8 trees (at K = 8 the host
-# accumulator alone would be 8.6 GB)
+# state's first batch gives each shard one of its 4 trees
 DIRECTED_EXACT_N = 4096
 EXACT_SHARDS = ROAD_SHARDS = 4
 # the synthetic full-row query state (no graph behind it): L = count =
 # 256, hubs from a shared pool so rows overlap, a table past the L2
 SYNTH_N, SYNTH_L, SYNTH_POOL = 262_144, 256, 1024
+# the distributed phases: DIST_Q logical nodes on the card at exactness;
+# a Ψ threshold below 1 (every label is an explored vertex, so Ψ >= 1)
+# switches the hybrid to DGLL after its first PLaNT superstep. The card
+# against the CPU on DIST_SMALL_SIDE^2 vertices (the CPU's run of the
+# 8-node hybrid at n = 4096 takes about a minute)
+DIST_Q, DIST_PSI_LOW, DIST_SMALL_SIDE = 8, 0.5, 24
+# the road phase: 2 nodes, one common tree a node (eta = 2), one
+# HC-pruned PLaNT superstep of a batch of 4 trees a node, then one DGLL
+# superstep of 3 (8 trees a node in all, chl_road's trees_per_node, so
+# that its cap of 8 labels a vertex a node holds)
+ROAD_NODES, ROAD_ETA, ROAD_DIST_COLS = 2, 2, 8
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, stamped with the seconds since start
+    (the stamps give each phase's share of the run)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -260,11 +309,24 @@ DEVICE_NAMES = {"ell_relax": "ell_relax_kernel",
                 "minplus": "minplus_kernel"}
 
 
+def cuda_events(prof):
+    """A finished profiler window's device events (kernels and copies):
+    name and device span in µs (``.time_range.start``/``.end``), read
+    straight from the trace's kineto events, without the host-side
+    event tree that ``prof.events()`` builds (tens of seconds for a
+    window of 10^5 events)."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+    return [SimpleNamespace(name=e.name(), time_range=SimpleNamespace(
+                start=e.start_ns() / 1e3, end=e.end_ns() / 1e3))
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def device_events(fn, reps: int):
     """The device events (kernels and copies) of ``reps`` calls of
     ``fn`` in one ``torch.profiler`` window (CUDA activity only)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -272,19 +334,25 @@ def device_events(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return cuda_events(prof)
 
 
 def device_ms(fn, reps: int, kernel: str):
     """The kernel's own device time per call of ``fn``: the device time
     its events cover in a ``torch.profiler`` window over ``reps`` calls
-    (the union of their spans), divided by ``reps``; None when the
-    profile holds no device event of it."""
-    evs = [e for e in device_events(fn, reps)
-           if DEVICE_NAMES[kernel] in e.name]
-    if not evs:
-        return None
-    return covered(evs) / 1e3 / reps
+    (the union of their spans), divided by ``reps``. A window late in a
+    long process can come back with no device event at all (PERF.md
+    §7), so an empty window is logged and another taken, three in all;
+    None when none holds the kernel."""
+    for window in range(1, 4):
+        got = device_events(fn, reps)
+        evs = [e for e in got if DEVICE_NAMES[kernel] in e.name]
+        if evs:
+            return covered(evs) / 1e3 / reps
+        log(f"device time of {kernel}: window {window} of 3 held "
+            f"{len(got)} device events of "
+            f"{sorted({e.name[:40] for e in got})[:4]}")
+    return None
 
 
 def covered(events) -> float:
@@ -883,6 +951,7 @@ def phase_scale(dev, kernels, what, g, rank, batch, trees, cap) -> dict:
     log(f"{what} serve: {SERVE_Q} served answers == plain query_pairs")
     serve_split(idx, u, v, what)
     return {"launches": launches, "roots": roots, "table": table,
+            "dijkstra": (r, D),
             "records": res.records, "u": u, "v": v, "wall": wall}
 
 
@@ -935,50 +1004,62 @@ def gll_road_policy(dev, g, rank, roots):
     return policy
 
 
+def first_trees_table(table, roots, k):
+    """Phase 5's table as a build of its first ``k`` roots alone would
+    leave it: the labels of ``roots[k:]`` dropped, each row compacted
+    in order (its first batch's labels come first in every row)."""
+    import torch
+    from repro_torch.core import labels as lbl
+    later = torch.as_tensor(roots[k:], device=table.hubs.device)
+    return lbl.delete_mask(table, torch.isin(table.hubs, later))
+
+
 def phase_gll_road(dev, kernels, g, rank, road) -> dict:
-    """One GLL superstep on the road state through ``engine.run``, held
-    against phase 5's PLaNT table, then its time split."""
+    """One GLL superstep on the road state through ``engine.run`` over
+    phase 5's first batch of roots (ROAD_BATCH of its ROAD_TREES: a cut
+    in depth), held against phase 5's PLaNT table restricted to those
+    roots, then its time split."""
     import torch
     from repro_torch.core import labels as lbl
     from repro_torch.engine import DenseSink, run
+    roots = road["roots"][:ROAD_BATCH]
     reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run(gll_road_policy(dev, g, rank, road["roots"]),
+    res = run(gll_road_policy(dev, g, rank, roots),
               DenseSink(g.n, ROAD_CAP, dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = path_launches(kernels, ("ell_relax_windowed",), "gll road")
     table = res.sink.table()
-    require(same_table(table, road["table"]),
-            "gll road: table != phase 5's PLaNT table")
+    require(same_table(table, first_trees_table(road["table"], road["roots"],
+                                                ROAD_BATCH)),
+            "gll road: table != phase 5's PLaNT table of the same roots")
     c = res.counters
     log(f"gll road superstep: {len(res.records)} supersteps of "
-        f"{[r.trees for r in res.records]} trees, {ROAD_TREES} roots in "
-        f"batches of {ROAD_BATCH}, alpha {GLL_ALPHA}: wall {wall:.2f} s "
-        f"(phase 5's PLaNT superstep {road['wall']:.2f} s on the same "
-        f"roots; expected about that or less), constructed "
-        f"{c['constructed']}, cleaned {c['cleaned']}, "
-        f"{lbl.total_labels(table)} labels; table == phase 5's PLaNT "
-        f"table (torch.equal); launches {launches}")
+        f"{[r.trees for r in res.records]} trees, {len(roots)} roots in "
+        f"one batch, alpha {GLL_ALPHA}: wall {wall:.2f} s (phase 5's PLaNT "
+        f"superstep {road['wall']:.2f} s for {ROAD_TREES} roots in "
+        f"batches of {ROAD_BATCH}), constructed {c['constructed']}, "
+        f"cleaned {c['cleaned']}, {lbl.total_labels(table)} labels; table "
+        f"== phase 5's PLaNT table of these roots (torch.equal); launches "
+        f"{launches}")
     del res, table
-    split = gll_road_split(dev, g, rank, road["roots"])
+    split = gll_road_split(dev, g, rank, roots)
     return {"launches": launches, "wall": wall, "split": split}
 
 
 def gll_road_split(dev, g, rank, roots) -> dict:
-    """A fresh GLL run on the road roots: its first batch unprofiled,
-    then a ``torch.profiler`` window (CUDA activity) over the second
-    batch and the flush, with CUDA events around the same span. The
-    window gives the device's busy time and the relaxation kernel's;
-    the distance-query cover (both tables' ``hub_distance_map`` +
-    ``cover_distance``, on the state the second batch starts from)
-    and ``clean_superstep`` (on the flush's emissions, at its shapes:
-    its work does not depend on the values) are timed apart with CUDA
-    events; the sweep loop's mask/frontier ops are the rest of the busy
-    time."""
+    """A fresh GLL run on the road roots (one batch): a
+    ``torch.profiler`` window (CUDA activity) over the batch and the
+    flush, with CUDA events around the same span. The window gives the
+    device's busy time and the relaxation kernel's; the distance-query
+    cover (both tables' ``hub_distance_map`` + ``cover_distance``, on
+    the state the batch starts from: its work does not depend on the
+    values) and ``clean_superstep`` (on the flush's emissions, at its
+    shapes) are timed apart with CUDA events; the sweep loop's
+    mask/frontier ops are the rest of the busy time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import labels as lbl
     from repro_torch.core.gll import clean_superstep
@@ -987,10 +1068,8 @@ def gll_road_split(dev, g, rank, roots) -> dict:
     policy = gll_road_policy(dev, g, rank, roots)
     sink = DenseSink(g.n, ROAD_CAP, dev)
     steps = list(policy.schedule().steps())
-    require(len(steps) == 2, "gll road split: want two batches")
-    require(policy.step(steps[0], sink) is None,
-            "gll road split: the first batch flushed")
-    roots2 = torch.as_tensor(steps[1].roots, device=dev)
+    require(len(steps) == 1, "gll road split: want one batch")
+    roots2 = torch.as_tensor(steps[0].roots, device=dev)
 
     def cover():
         return torch.minimum(
@@ -1012,12 +1091,12 @@ def gll_road_split(dev, g, rank, roots) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ev[0].record()
-        out = policy.step(steps[1], sink) or policy.epilogue(sink)
+        out = policy.step(steps[0], sink) or policy.epilogue(sink)
         ev[1].record()
         torch.cuda.synchronize()
     host = time.perf_counter() - t0
     sweeps = WINDOWED_KERNEL.launches - before      # one launch a sweep
-    require(out is not None and out.record.trees == ROAD_TREES,
+    require(out is not None and out.record.trees == len(roots),
             "gll road split: the window holds no flush of all roots")
     stream_ms = ev[0].elapsed_time(ev[1])
     roots_t = torch.cat([b.roots for b in pending])
@@ -1028,7 +1107,7 @@ def gll_road_split(dev, g, rank, roots) -> dict:
         table, table, policy.arrays.rank, roots_t, emit, dist),
         reps=3, warmup=1)
     t1 = time.perf_counter()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = cuda_events(prof)
     parse = time.perf_counter() - t1
     split = {"stream_ms": stream_ms, "host_s": host, "cover_ms": cover_ms,
              "clean_ms": clean_ms, "sweeps": sweeps}
@@ -1046,7 +1125,7 @@ def gll_road_split(dev, g, rank, roots) -> dict:
     split.update(span_ms=span, busy_ms=busy, relax_ms=relax,
                  loop_ops_ms=loop_ops, events=len(kern))
     per = max(1, sweeps)
-    log(f"gll road split (second batch, {sweeps} sweeps, + flush; "
+    log(f"gll road split (the batch, {sweeps} sweeps, + flush; "
         f"{len(kern)} device events, profile parsed in {parse:.1f} s): "
         f"host wall {host:.2f} s, stream span {stream_ms:.1f} ms (CUDA "
         f"events), device span {span:.1f} ms, busy {busy:.1f} ms "
@@ -1799,14 +1878,15 @@ def same_stores(a, b) -> bool:
 
 
 def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
-    """Phase 5's road superstep (same roots, batch and graph) streamed
-    into ROAD_SHARDS hub shards through ``StreamingShardSink``: the
-    shards equal ``hub_partition_arrays`` of phase 5's dense table; a
-    ``ShardedStore`` on the card answers phase 5's SERVE_Q pairs stacked
-    (K launches and one cross-shard minimum: dist and hub) and routed,
-    each equal to the dense store. Logs the host insert time, the
-    accumulator's bytes and the stacked query's device time beside
-    ``query_table``'s on the same pairs."""
+    """Phase 5's first batch of road roots (ROAD_BATCH of its ROAD_TREES:
+    a cut in depth; same batch and graph) streamed into ROAD_SHARDS hub
+    shards through ``StreamingShardSink``: the shards equal
+    ``hub_partition_arrays`` of phase 5's dense table restricted to
+    those roots; a ``ShardedStore`` on the card answers phase 5's
+    SERVE_Q pairs stacked (K launches and one cross-shard minimum: dist
+    and hub) and routed, each equal to that dense table's store. Logs
+    the host insert time, the accumulator's bytes and the stacked
+    query's device time beside ``query_table``'s on the same pairs."""
     import numpy as np
     import torch
     from repro_torch.engine import PlantPolicy, StreamingShardSink, run
@@ -1826,7 +1906,7 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
 
     reset(kernels)
     policy = PlantPolicy(g, rank, batch=ROAD_BATCH, device=dev,
-                         roots_order=road["roots"])
+                         roots_order=road["roots"][:ROAD_BATCH])
     sink = TimedSink(g.n, rank, ROAD_SHARDS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1838,7 +1918,7 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
     t1 = time.perf_counter()
     store = ShardedStore.from_accumulator(acc, device=dev)
     adopt_s = time.perf_counter() - t1
-    table = road["table"]
+    table = first_trees_table(road["table"], road["roots"], ROAD_BATCH)
     t1 = time.perf_counter()
     want = hub_partition_arrays(table.hubs.cpu().numpy(),
                                 table.dist.cpu().numpy(), rank, ROAD_SHARDS)
@@ -1846,7 +1926,7 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
     require(all(np.array_equal(x.cpu().numpy(), y) for x, y in
                 zip((store.hubs, store.dist, store.count), want)),
             "sharded road: streamed shards != hub_partition_arrays of "
-            "phase 5's table")
+            "phase 5's table of the same roots")
     per_shard = [int(x) for x in store.count.sum(dim=1).tolist()]
     widest = [int(x) for x in store.count.max(dim=1).values.tolist()]
     insert_s, commits = sink.insert_s, len(res.records)
@@ -1881,14 +1961,16 @@ def phase_sharded_road(dev, kernels, g, rank, road) -> dict:
                                 for k in range(ROAD_SHARDS)],
                        reps=3, warmup=1)
     bnd, design = stacked_bound_ms(store, u, v)
-    log(f"sharded road n={g.n} K={ROAD_SHARDS}: streamed superstep "
-        f"{wall:.2f} s ({sweeps} sweeps; phase 5's dense superstep "
-        f"{road['wall']:.2f} s), host insert {insert_s:.2f} s for "
+    log(f"sharded road n={g.n} K={ROAD_SHARDS}: streamed superstep of "
+        f"{ROAD_BATCH} roots {wall:.2f} s ({sweeps} sweeps; phase 5's "
+        f"dense superstep of {ROAD_TREES} {road['wall']:.2f} s), host "
+        f"insert {insert_s:.2f} s for "
         f"{commits} commits (planes fetched once a commit), "
         f"accumulator {acc_bytes:,} B on the host; ShardedStore on the card "
         f"{adopt_s:.2f} s, labels per shard {per_shard}, widest row per "
         f"shard {widest}; shards == hub_partition_arrays of phase 5's "
-        f"table ({part_s:.1f} s); stacked and routed dist == dense, "
+        f"table of these roots ({part_s:.1f} s); stacked and routed dist "
+        f"== dense, "
         f"stacked hubs == the plain stacked rule and real witnesses "
         f"({moved} of {SERVE_Q} differ from the dense store's first-slot "
         f"hub on a tie); stacked {stacked_launches} launches, routed "
@@ -2358,6 +2440,346 @@ def phase_spill_compressed_road(dev, kernels, rank, road, sharded) -> dict:
                       "kernel_device_ms": kern[0]}}
 
 
+# ------------------------------------------------------------ distributed
+
+def dijkstra_pairs(g, seed, sources=None):
+    """SERVE_Q pairs: ``sources`` (default SERVE_Q // n random ones) x
+    every target, shuffled, with scipy's Dijkstra distances."""
+    import numpy as np
+    from scipy.sparse.csgraph import dijkstra
+    rng = np.random.default_rng(seed)
+    src = (np.sort(rng.choice(g.n, SERVE_Q // g.n, replace=False))
+           if sources is None else np.asarray(sources))
+    D = dijkstra(_scipy_csr(g), indices=src).astype(np.float32)
+    perm = rng.permutation(len(src) * g.n)
+    u = np.repeat(src, g.n)[perm]
+    v = np.tile(np.arange(g.n), len(src))[perm]
+    return u, v, D.reshape(-1)[perm]
+
+
+def same_sets(table, want) -> bool:
+    from repro_torch.core import labels as lbl
+    return lbl.to_numpy_sets(table) == want
+
+
+def superstep_calls(records, calls, what) -> str:
+    """Require no collective call in a PLaNT superstep and at least one
+    in a DGLL superstep; returns ``mode:calls`` a superstep."""
+    require(len(records) == len(calls),
+            f"{what}: {len(calls)} call counts for {len(records)} records")
+    for r, c in zip(records, calls):
+        if r.mode in ("plant", "plant-hc"):
+            require(c == 0, f"{what}: a {r.mode} superstep made {c} "
+                    "collective calls")
+        else:
+            require(c > 0, f"{what}: a {r.mode} superstep made no "
+                    "collective call")
+    return " ".join(f"{r.mode}:{c}" for r, c in zip(records, calls))
+
+
+def serve_modes(idx, mesh, u, v, want, what) -> dict:
+    """qlsn, qfdl and qdol through ``serve`` (one flush each), each equal
+    to ``want``; returns each mode's flush wall and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.label_query import KERNEL
+    out = {}
+    for mode in ("qlsn", "qfdl", "qdol"):
+        srv = idx.serve(mode=mode, mesh=mesh, batch_size=len(u))
+        before = KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.submit(u, v)
+        got = srv.flush()
+        torch.cuda.synchronize()
+        out[mode] = (time.perf_counter() - t0, KERNEL.launches - before)
+        require(np.array_equal(got, want), f"{what}: {mode} answers "
+                "differ")
+    return out
+
+
+def phase_distributed_exactness(dev, kernels, exact) -> dict:
+    """The distributed family on phase 3's graph (n = 4096).
+
+    ``build(g, rank)`` with the default plan (the hybrid: eta = 16, auto
+    Ψ) on the card's one-node mesh; then the hybrid (eta = 16, Ψ_th
+    below 1, chl_common's compact budget), dgll and plant-dist on an
+    8-node logical mesh on the card, each merged table equal to phase
+    3's PLaNT table as label sets, no collective call in a PLaNT
+    superstep and at least one in a DGLL superstep; qlsn, qfdl and qdol
+    of the 8-node hybrid answer SERVE_Q Dijkstra pairs exactly;
+    plant-dist with node 1 silent after superstep 2 and a heartbeat
+    monitor of patience 1 re-plants node 1's tail on the survivors and
+    lands the same label sets. Then the 8-node hybrid on the card equals
+    the CPU's, partitions, merged table and records, on
+    grid_road(DIST_SMALL_SIDE, DIST_SMALL_SIDE)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.chl_common import ChlConfig
+    from repro_torch.core.dgll import merge_partitions, stack_partitions
+    from repro_torch.core.hybrid import run_distributed
+    from repro_torch.engine import run_build
+    from repro_torch.ft import HeartbeatMonitor
+    from repro_torch.graphs import betweenness_ranking, grid_road
+    from repro_torch.index import BuildPlan, BuildReport, CHLIndex, build
+    from repro_torch.index.store import DenseStore
+    from repro_torch.parallel import NodeMesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.core import labels as lbl
+    g, rank = exact["graph"]
+    want = lbl.to_numpy_sets(exact["table"])
+    u, v, dists = dijkstra_pairs(g, 29)
+    compact = ChlConfig.__dataclass_fields__["compact"].default
+    walls, launches = {}, {k.name: 0 for k in kernels}
+
+    def add(counts):
+        for name, c in counts.items():
+            launches[name] += c
+
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = build(g, rank, device=dev)
+    torch.cuda.synchronize()
+    walls["default"] = time.perf_counter() - t0
+    rep = idx.report
+    require(idx.plan == BuildPlan() and rep.algo == "hybrid" and rep.q == 1,
+            "distributed exactness: the default build is not a one-node "
+            "hybrid")
+    require(same_sets(idx.table, want), "distributed exactness: the "
+            "default build's label sets != phase 3's PLaNT table")
+    add(path_launches(kernels, ("ell_relax",), "default hybrid"))
+    log(f"distributed exactness: build(g, rank) (hybrid, eta "
+        f"{idx.plan.eta}, Ψ_th {rep.psi_threshold}, one node): "
+        f"{walls['default']:.3f} s, supersteps "
+        f"{[(r.mode, r.trees) for r in rep.supersteps]}, "
+        f"{idx.total_labels} labels == phase 3's label sets")
+
+    mesh = NodeMesh.logical(DIST_Q, dev)
+    plans = {"hybrid": dict(eta=16, psi_threshold=DIST_PSI_LOW,
+                            compact=compact),
+             "dgll": {}, "plant-dist": {}}
+    hybrid = None
+    for algo, kw in plans.items():
+        reset(kernels)
+        coll.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_build(g, rank, algo=algo, batch=idx.plan.batch,
+                        mesh=mesh, **kw)
+        merged = merge_partitions(res.sink.tables)
+        torch.cuda.synchronize()
+        walls[algo] = time.perf_counter() - t0
+        require(same_sets(merged, want), f"distributed exactness: {algo} "
+                "label sets != phase 3's PLaNT table")
+        calls = superstep_calls(res.records, res.extras["collective_calls"],
+                                f"{algo} x{DIST_Q}")
+        add(path_launches(kernels, ("ell_relax",), f"{algo} x{DIST_Q}"))
+        log(f"distributed exactness: {algo} on {DIST_Q} logical nodes: "
+            f"{walls[algo]:.3f} s, collectives {dict(coll.COUNTS)} moving "
+            f"{dict(coll.BYTES)} B, supersteps (mode:calls) {calls}, "
+            f"comm_label_slots {res.counters['comm_label_slots']}; label "
+            "sets == phase 3's")
+        if algo == "hybrid":
+            hybrid = res, merged
+    res, merged = hybrid
+    total = int(merged.count.sum())
+    report = BuildReport(algo="hybrid", wall_s=walls["hybrid"],
+                         total_labels=total, als=total / g.n,
+                         cap=res.sink.cap, supersteps=list(res.records),
+                         q=DIST_Q)
+    hidx = CHLIndex(DenseStore(merged), plan=BuildPlan(batch=idx.plan.batch),
+                    report=report, rank=rank,
+                    partitioned=res.extras["partitioned"])
+    reset(kernels)
+    served = serve_modes(hidx, mesh, u, v, dists, "distributed exactness")
+    add(path_launches(kernels, ("label_query",), "query modes"))
+    log(f"distributed exactness: {len(u)} Dijkstra pairs through "
+        "serve(qlsn | qfdl | qdol) on the 8-node hybrid: " + ", ".join(
+            f"{m} {w:.3f} s in {c} launches" for m, (w, c) in served.items())
+        + " ; all == Dijkstra")
+
+    reset(kernels)
+    mon = HeartbeatMonitor(DIST_Q, patience=1)
+    t0 = time.perf_counter()
+    merged, stats = run_distributed(g, rank, mesh=mesh,
+                                    batch=idx.plan.batch, beta=2.0, eta=0,
+                                    psi_threshold=float("inf"),
+                                    algo_name="plant-dist", monitor=mon,
+                                    silent_after={1: 2})
+    torch.cuda.synchronize()
+    walls["elastic"] = time.perf_counter() - t0
+    require(stats["dead_nodes"] == [1] and stats["replanted_trees"] > 0,
+            f"elastic: dead {stats['dead_nodes']}, replanted "
+            f"{stats['replanted_trees']}")
+    require(same_sets(merged, want), "elastic: label sets != phase 3's")
+    add(path_launches(kernels, ("ell_relax",), "elastic"))
+    log(f"distributed exactness: plant-dist x{DIST_Q}, node 1 silent after "
+        f"superstep 2: lost, {stats['replanted_trees']} trees "
+        f"({stats['replanted_labels']} labels) re-planted on the "
+        f"survivors in {walls['elastic']:.3f} s; label sets == phase 3's")
+
+    gs = grid_road(DIST_SMALL_SIDE, DIST_SMALL_SIDE, seed=7)
+    rs = betweenness_ranking(gs, samples=12)
+    plan = BuildPlan(eta=16, psi_th=DIST_PSI_LOW, compact=compact)
+    reset(kernels)
+    card = build(gs, rs, plan, mesh=NodeMesh.logical(DIST_Q, dev))
+    add(path_launches(kernels, ("ell_relax",), "small hybrid"))
+    t0 = time.perf_counter()
+    cpu = build(gs, rs, plan, mesh=NodeMesh.logical(DIST_Q, "cpu"))
+    cpu_wall = time.perf_counter() - t0
+    for a, b in zip(stack_partitions(card.partitioned),
+                    stack_partitions(cpu.partitioned)):
+        require(torch.equal(a.cpu(), b), "distributed: card partitions != "
+                "the CPU's")
+    require(same_table([x.cpu() for x in card.table], cpu.table)
+            and card.report.supersteps == cpu.report.supersteps,
+            "distributed: card merged table or records != the CPU's")
+    log(f"distributed exactness: the 8-node hybrid on grid_road("
+        f"{DIST_SMALL_SIDE}, {DIST_SMALL_SIDE}) on the card == the CPU's "
+        f"(partitions {tuple(stack_partitions(card.partitioned).hubs.shape)}"
+        f", merged table, records {[r.mode for r in card.report.supersteps]};"
+        f" CPU {cpu_wall:.2f} s, card {card.report.wall_s:.2f} s); "
+        f"launches {launches}")
+    return {"launches": launches, "walls": walls}
+
+
+def phase_distributed_road(dev, kernels, g, rank, known) -> dict:
+    """The hybrid on chl_road (n = 16,777,216, width 8, batch 4, cap 8,
+    hc_cap 32, compact 4096) on ROAD_NODES logical nodes of the card:
+    eta = ROAD_ETA common trees (the prologue), one HC-pruned PLaNT
+    superstep of a batch of 4 trees a node and one DGLL superstep of 3
+    (the queues cut to ROAD_DIST_COLS columns a node). Checks that the
+    node steps swept through the windowed kernel only, that no
+    collective ran in a PLaNT superstep and one did in the DGLL
+    superstep, and that for SERVE_Q pairs (r, v), r a processed root
+    (the top ranks, so the answers are exact), qlsn = qfdl = qdol, all
+    finite, and equal scipy's Dijkstra from two of the roots (``known``:
+    phase 5's Dijkstra row of the top root, and one more). Logs the
+    common table, prologue and superstep walls, the fallback, the
+    collectives' calls and bytes and a profiled window of HC-pruned
+    sweeps."""
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.core.dgll import merge_partitions
+    from repro_torch.engine import MeshTableSink, run
+    from repro_torch.engine.dist import DistributedPolicy
+    from repro_torch.index import BuildPlan, BuildReport, CHLIndex
+    from repro_torch.index.store import DenseStore
+    from repro_torch.kernels.ell_relax import layout_plan
+    from repro_torch.parallel import NodeMesh
+    from repro_torch.core.plant import hc_block_fn
+    from repro_torch.parallel import collectives as coll
+    plan_w = layout_plan(g.n, dev, bb=ROAD.batch)
+    require(plan_w.num_windows > 1, "distributed road: planes fit one "
+            "window")
+    mesh = NodeMesh.logical(ROAD_NODES, dev)
+    policy = DistributedPolicy(
+        g, rank, mesh=mesh, batch=ROAD.batch, beta=2.0,
+        first_superstep=ROAD.batch, cap=ROAD.cap, eta=ROAD_ETA,
+        hc_cap=ROAD.hc_cap, psi_threshold=DIST_PSI_LOW,
+        compact=ROAD.compact, mode_name="hybrid")
+    policy.queues = policy.queues[:, :ROAD_DIST_COLS]
+    walls = {}
+
+    def timed(name, fn):
+        def wrapper(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+    policy.begin = timed("common table", policy.begin)
+    policy.prologue = timed("prologue", policy.prologue)
+    policy.step = timed("superstep", policy.step)
+    reset(kernels)
+    coll.reset_counts()
+    t0 = time.perf_counter()
+    res = run(policy, MeshTableSink(mesh, g.n, ROAD.cap))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches(kernels, ("ell_relax_windowed",),
+                             "distributed road")
+    require(launches["ell_relax"] == 0, "distributed road: a node step "
+            "took the dense sweep")
+    modes = [r.mode for r in res.records]
+    require(modes[:2] == ["plant-hc", "plant"] and len(modes) == 3
+            and modes[2].startswith("dgll"),
+            f"distributed road: supersteps {modes}")
+    calls = superstep_calls(res.records, res.extras["collective_calls"],
+                            "distributed road")
+    log(f"distributed road: {ROAD_NODES} nodes, {g.n} vertices, "
+        f"{plan_w.num_windows} source windows: wall {wall:.2f} s = common "
+        f"table {walls['common table'][0]:.2f} s + prologue "
+        f"{walls['prologue'][0]:.2f} s + supersteps "
+        f"{[round(w, 2) for w in walls['superstep']]} s; records "
+        f"{[(r.mode, r.trees, r.labels, round(r.psi, 3)) for r in res.records]}"
+        f"; collectives (mode:calls) {calls}, {dict(coll.COUNTS)} moving "
+        f"{dict(coll.BYTES)} B (each node's piece to the other), "
+        f"comm_label_slots {res.counters['comm_label_slots']}; launches "
+        f"{launches}")
+
+    t1 = time.perf_counter()
+    merged = merge_partitions(res.sink.tables)
+    torch.cuda.synchronize()
+    total = int(merged.count.sum())
+    report = BuildReport(algo="hybrid", wall_s=wall, total_labels=total,
+                         als=total / g.n, cap=ROAD.cap,
+                         supersteps=list(res.records), q=ROAD_NODES)
+    idx = CHLIndex(DenseStore(merged), plan=BuildPlan(batch=ROAD.batch),
+                   report=report, rank=rank,
+                   partitioned=res.extras["partitioned"])
+    merge_s = time.perf_counter() - t1
+    roots = policy.queues.reshape(-1)
+    roots = roots[roots >= 0]
+    rng = np.random.default_rng(31)
+    u = rng.choice(roots, SERVE_Q)
+    v = rng.integers(0, g.n, SERVE_Q)
+    qlsn = idx.query(u, v)
+    require(bool(np.isfinite(qlsn).all()), "distributed road: a pair of "
+            "a processed root has no common hub")
+    t1 = time.perf_counter()
+    plain, _ = query_pairs_in_chunks(
+        merged, torch.as_tensor(u, device=dev).long(),
+        torch.as_tensor(v, device=dev).long())
+    require(np.array_equal(plain.cpu().numpy(), qlsn), "distributed road: "
+            "qlsn on the merged table != the plain query")
+    plain_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    served = serve_modes(idx, mesh, u, v, qlsn, "distributed road")
+    serve_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    top, d_top = known
+    other = int(roots[roots != top][0])
+    rows = {int(top): d_top.astype(np.float32),
+            other: dijkstra(_scipy_csr(g), indices=other).astype(np.float32)}
+    sources = np.array(list(rows))
+    checked = 0
+    for r, D in rows.items():
+        sel = u == r
+        require(np.array_equal(qlsn[sel], D[v[sel]]),
+                f"distributed road: answers from root {r} != Dijkstra")
+        checked += int(sel.sum())
+    log(f"distributed road: {total} labels merged in {merge_s:.2f} s; "
+        f"{SERVE_Q} pairs from the {len(roots)} processed roots: qlsn on "
+        f"the merged [{g.n}, {merged.cap}] table == the plain query "
+        f"({plain_s:.2f} s) == qfdl == qdol (" + ", ".join(
+            f"{m} {w:.3f} s in {c} launches" for m, (w, c) in served.items())
+        + f", modes {serve_s:.1f} s with the qdol store built on the host),"
+        f" all finite; {checked} of them from roots {sources.tolist()} == "
+        f"scipy Dijkstra ({time.perf_counter() - t1:.1f} s)")
+    hc = policy.hc[0]
+    first = policy.queues[0, 1:1 + ROAD.batch]      # superstep 1, node 0
+    del idx, merged, res, policy
+    torch.cuda.empty_cache()
+    trace_sweeps(dev, "road hc-pruned", g, rank, first, ROAD.batch,
+                 block=lambda r: hc_block_fn(hc, r))
+    return {"launches": launches, "wall": wall, "walls": walls}
+
+
 def directed_graph():
     from repro_torch.graphs import degree_ranking, random_connected
     t0 = time.perf_counter()
@@ -2588,30 +3010,34 @@ def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
     return out
 
 
-def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16) -> None:
+def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16,
+                 block=None) -> None:
     """A profiler window (``torch.profiler``, CPU and CUDA) over
     ``sweeps`` steady sweeps of ``batched_sssp_maxrank`` from the top
-    roots, on the route the card's L2 picks: the device's busy share of
+    roots (``block(roots)``, when given, makes the sweeps' pruning
+    mask), on the route the card's L2 picks: the device's busy share of
     the window, each kernel's device time by name, and per sweep the
     relaxation kernel's time, the sweep loop's own tensor ops' and the
     idle time. All times are the trace's device timestamps; without
     device events the lines say "not measured"."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.graphs import device_arrays
     from repro_torch.sssp import batched_sssp_maxrank, ell_layout
     a = device_arrays(g, rank, dev)
     lay = ell_layout(a.ell_src, a.ell_w, batch=batch)
     roots_d = torch.as_tensor(roots[:batch], device=dev).long()
+    block_fn = None if block is None else block(roots_d)
     batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
-                         max_sweeps=4, layout=lay)          # warm-up
+                         max_sweeps=4, layout=lay,
+                         block_fn=block_fn)                 # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
-                                  max_sweeps=sweeps, layout=lay)
+                                  max_sweeps=sweeps, layout=lay,
+                                  block_fn=block_fn)
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = cuda_events(prof)
     if not kern:
         log(f"trace {what}: not measured (the profile holds no device "
             "time)")
@@ -2884,6 +3310,7 @@ def main() -> int:
     add(phase_sharded_exactness(dev, kernels, exact, repair)["launches"])
     del repair
     add(phase_spill_compressed_exactness(dev, kernels, exact)["launches"])
+    add(phase_distributed_exactness(dev, kernels, exact)["launches"])
     g, rank = exact["graph"]
     lq = {"exactness": time_query_table(
         dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
@@ -2940,7 +3367,12 @@ def main() -> int:
     add(stores["launches"])
     lq["compressed_road"] = stores["compressed"]
     lq["spill_road"] = stores["spill"]
-    del g, rank, road, sharded_road, stores
+    known = road["dijkstra"]
+    del road, sharded_road, stores
+    torch.cuda.empty_cache()
+    add(phase_distributed_road(dev, kernels, g, rank, known)["launches"])
+    del known
+    del g, rank
     torch.cuda.empty_cache()
 
     g, rank = random_graph()

@@ -275,6 +275,8 @@ def repair_index(idx, batch: MutationBatch, g, *, ckpt=None,
                               int(new_cap * idx.plan.cap_growth)), idx.n)
         h, d, c = _canonical_rows(hubs, dist, oi, new_cap)
         idx.store = DenseStore(interop.label_table(h, d, c, dev))
+    # any construction-time partitioned view predates the mutation
+    idx.partitioned = None
 
     total = idx.store.total_labels
     return RepairReport(

@@ -125,6 +125,7 @@ class PlantPolicy(Policy):
     name = "plant"
 
     def __init__(self, g, rank: np.ndarray, *, batch: int, device,
+                 hc: Optional[lbl.LabelTable] = None,
                  roots_order: Optional[np.ndarray] = None):
         self.g, self.rank = g, rank
         self.batch = int(batch)
@@ -133,6 +134,9 @@ class PlantPolicy(Policy):
                       else rank_order(rank))
         self.arrays = device_arrays(g, rank, device)
         self.device = self.arrays.ell_src.device
+        # the Common Label Table, when given, prunes every tree (§5.3)
+        self.hc = (None if hc is None else
+                   lbl.LabelTable(*(x.to(self.device) for x in hc)))
         # the source-bucketed layout (None when one window covers the
         # graph), built once per graph rather than per batch
         self.layout = ell_layout(self.arrays.ell_src, self.arrays.ell_w,
@@ -141,14 +145,22 @@ class PlantPolicy(Policy):
     @functools.cached_property
     def fingerprint(self) -> str:
         fp = build_fingerprint(self.g, self.rank)
-        if not self.custom_order:
-            return fp
-        # a custom root order changes which labels each superstep emits
-        return fp + ":" + hashlib.sha256(np.ascontiguousarray(
-            self.order.astype(np.int64)).tobytes()).hexdigest()
+        # a custom root order or a Common Label Table changes which
+        # labels each superstep emits: both join the fingerprint
+        if self.custom_order:
+            fp += ":" + hashlib.sha256(np.ascontiguousarray(
+                self.order.astype(np.int64)).tobytes()).hexdigest()
+        if self.hc is not None:
+            h = hashlib.sha256()
+            h.update(np.ascontiguousarray(
+                self.hc.hubs.cpu().numpy().astype(np.int64)).tobytes())
+            h.update(np.ascontiguousarray(
+                self.hc.dist.cpu().numpy().astype(np.float64)).tobytes())
+            fp += ":hc:" + h.hexdigest()
+        return fp
 
     def config(self) -> dict:
-        return {"batch": self.batch, "use_hc": False}
+        return {"batch": self.batch, "use_hc": self.hc is not None}
 
     def schedule(self) -> BatchSchedule:
         return BatchSchedule(self.order, self.batch)
@@ -158,6 +170,7 @@ class PlantPolicy(Policy):
         roots_d = torch.as_tensor(st.roots, device=self.device)
         valid_d = torch.as_tensor(st.valid, device=self.device)
         tb = plant_batch(a.ell_src, a.ell_w, a.rank, roots_d, valid_d,
+                         hc=self.hc, use_hc=self.hc is not None,
                          layout=self.layout)
         sink.insert(roots_d, tb.emit, tb.dist)
         stats = pack_stats(tb.emit.sum(dtype=torch.int32),

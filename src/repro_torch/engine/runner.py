@@ -220,9 +220,10 @@ def run(policy: Policy, sink, *, ckpt=None, resume: bool = False,
                         resumed_from=resumed_from)
 
 
-#: algorithms this port builds; the rest of the reference's list is
-#: still to port (ROADMAP Queue 1)
-PORTED_ALGOS = ("plant", "pll-ref", "gll", "lcc", "parapll", "directed")
+#: every algorithm of `repro_torch.index.plan.ALGOS`, all of which this
+#: port builds
+PORTED_ALGOS = ("plant", "pll-ref", "gll", "lcc", "parapll", "directed",
+                "dgll", "hybrid", "plant-dist")
 
 #: algorithms whose emissions are final on arrival and independent of
 #: any global table: the ones that stream into shard arrays without
@@ -230,51 +231,67 @@ PORTED_ALGOS = ("plant", "pll-ref", "gll", "lcc", "parapll", "directed")
 STREAMING_ALGOS = ("plant", "pll-ref")
 
 
-def unported_algo(algo: str) -> NotImplementedError:
-    """The refusal for an algorithm this port does not build yet (the
-    distributed ones), citing the ROADMAP item that ports it."""
-    return NotImplementedError(
-        f"algo={algo!r} is not ported yet (ROADMAP Queue 1, item 11, "
-        f"distributed); this port builds {', '.join(PORTED_ALGOS)}")
-
-
 def run_build(g, rank: np.ndarray, *, algo: str, batch: int = 8,
               cap: Optional[int] = None, alpha: Optional[float] = 4.0,
               rank_queries: bool = True, clean: bool = True,
-              plant_first_superstep: bool = False,
+              plant_first_superstep: bool = False, hc=None,
               roots_order: Optional[np.ndarray] = None,
+              mesh=None, beta: float = 8.0, first_superstep: int = 1,
+              eta: int = 0, hc_cap: int = 64,
+              psi_threshold: Optional[float] = 100.0, compact: int = 0,
               streaming_shards: Optional[int] = None,
               device: DeviceLike = None, ckpt=None, resume: bool = False,
               verbose: bool = False) -> EngineResult:
     """Construct labels for ``algo`` through the engine on ``device``
     (default: the card). ``lcc`` forces ``alpha=None``; ``parapll``
     also turns rank queries and cleaning off; ``directed`` fills the
-    sink's ``"out"`` and ``"in"`` channels. ``roots_order`` applies to
-    ``plant`` only. ``streaming_shards=K`` (`STREAMING_ALGOS` only)
-    swaps the dense sink for the hub-partitioned streaming sink.
-    ``ckpt`` checkpoints every committed superstep; ``resume``
-    continues from the newest compatible one."""
+    sink's ``"out"`` and ``"in"`` channels. ``hc`` (a common label
+    table) and ``roots_order`` apply to ``plant`` only.
+    ``streaming_shards=K`` (`STREAMING_ALGOS` only) swaps the dense sink
+    for the hub-partitioned streaming sink. The distributed algorithms
+    (``dgll``, ``hybrid``, ``plant-dist``) run on ``mesh`` (a
+    `NodeMesh`; default: one node per device of ``device``'s type) with
+    the superstep knobs ``beta``, ``first_superstep``, ``eta``,
+    ``hc_cap``, ``psi_threshold`` and ``compact``. ``ckpt``
+    checkpoints every committed superstep; ``resume`` continues from
+    the newest compatible one."""
     from repro_torch.core import labels as lbl
     from repro_torch.engine.policies import (DirectedPlantPolicy, GLLPolicy,
                                              PlantPolicy, PLLRefPolicy)
-    from repro_torch.engine.sink import DenseSink, StreamingShardSink
+    from repro_torch.engine.sink import (DenseSink, MeshTableSink,
+                                         StreamingShardSink)
 
     if algo not in PORTED_ALGOS:
-        raise unported_algo(algo)
-    if roots_order is not None and algo != "plant":
-        raise ValueError(f"roots_order applies to algo='plant', not "
+        raise ValueError(f"unhandled algo {algo!r}")
+    if (roots_order is not None or hc is not None) and algo != "plant":
+        raise ValueError(f"roots_order and hc apply to algo='plant', not "
                          f"{algo!r}")
     if streaming_shards is not None and algo not in STREAMING_ALGOS:
         raise ValueError(
             f"streaming sharded builds support {STREAMING_ALGOS} "
             f"(algo={algo!r} needs its dense global table during "
             "construction)")
-    dev = resolve_device(device)
     n = g.n
     cap = cap or lbl.default_cap(n)
+    if algo in ("dgll", "hybrid", "plant-dist"):
+        from repro_torch.engine.dist import DistributedPolicy
+        from repro_torch.parallel.mesh import make_node_mesh
+        mesh = mesh or make_node_mesh(device=device)
+        if algo == "plant-dist":
+            eta, psi_threshold = 0, float("inf")
+        elif algo == "dgll":
+            psi_threshold = 0.0
+        policy = DistributedPolicy(
+            g, rank, mesh=mesh, batch=batch, beta=beta,
+            first_superstep=first_superstep, cap=cap, eta=eta,
+            hc_cap=hc_cap, psi_threshold=psi_threshold, compact=compact,
+            mode_name=algo, verbose=verbose)
+        return run(policy, MeshTableSink(mesh, n, cap), ckpt=ckpt,
+                   resume=resume, verbose=verbose)
+    dev = resolve_device(device)
     channels = ("labels",)
     if algo == "plant":
-        policy = PlantPolicy(g, rank, batch=batch, device=dev,
+        policy = PlantPolicy(g, rank, batch=batch, device=dev, hc=hc,
                              roots_order=roots_order)
     elif algo == "pll-ref":
         policy = PLLRefPolicy(g, rank, batch=batch, device=dev)

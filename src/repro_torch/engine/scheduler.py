@@ -1,4 +1,16 @@
-"""Root ordering and fixed-size batching for the superstep engine."""
+"""Root ordering, batching and superstep growth for the superstep engine.
+
+Two shapes of schedule:
+
+- :class:`BatchSchedule` — one global rank-descending root order cut
+  into fixed-size batches (the single-host policies). A resume
+  re-enters on the original batch boundaries.
+- :class:`QueueSchedule` — per-node round-robin root queues
+  (`repro_torch.core.dgll.assign_roots`) walked in supersteps that grow
+  geometrically by ``beta`` (§5.1: synchronization points set a
+  priori). The growth cursor (``next_size``) travels with every step,
+  so a resumed run continues the same growth sequence.
+"""
 
 from __future__ import annotations
 
@@ -25,12 +37,24 @@ def root_batches(order: np.ndarray, batch: int):
         yield roots.astype(np.int32), valid
 
 
+def pad_step(queues: np.ndarray, pos: int, T: int, batch: int
+             ) -> np.ndarray:
+    """``T`` columns of the per-node queues from column ``pos``, padded
+    with -1 (``batch`` is the reference's signature; unused)."""
+    del batch
+    q, per = queues.shape
+    out = np.full((q, T), -1, dtype=np.int32)
+    take = min(T, per - pos)
+    out[:, :take] = queues[:, pos:pos + take]
+    return out
+
+
 class Step(NamedTuple):
     """One schedulable unit of construction work."""
     pos: int                  # root cursor before this step
     end: int                  # root cursor after this step commits
-    roots: np.ndarray         # [B] root ids
-    valid: np.ndarray         # [B], False on padding
+    roots: np.ndarray         # [B] (batch) or [q, T] (queue) root ids
+    valid: np.ndarray         # same shape, False on padding
     next_size: Optional[int]  # growth cursor (None: batch schedules)
 
 
@@ -53,3 +77,34 @@ class BatchSchedule:
             yield Step(pos=pos, end=min(pos + self.batch, self.total),
                        roots=roots, valid=valid, next_size=None)
             pos += self.batch
+
+
+class QueueSchedule:
+    """Per-node root queues walked in geometrically growing supersteps.
+
+    ``queues`` is the ``[q, per]`` round-robin assignment of
+    `repro_torch.core.dgll.assign_roots`; every superstep covers ``T``
+    columns a node (rounded up to a multiple of ``batch``), and the
+    target size multiplies by ``beta`` after each superstep.
+    """
+
+    def __init__(self, queues: np.ndarray, batch: int, beta: float,
+                 first_superstep: int = 1):
+        self.queues = np.asarray(queues)
+        self.batch = int(batch)
+        self.beta = float(beta)
+        self.first_superstep = int(first_superstep)
+        self.total = int(self.queues.shape[1])     # columns per node
+
+    def steps(self, start: int = 0,
+              size: Optional[int] = None) -> Iterator[Step]:
+        pos = int(start)
+        size = self.first_superstep if size is None else int(size)
+        while pos < self.total:
+            T = min(size, self.total - pos)
+            T = -(-T // self.batch) * self.batch   # multiple of batch
+            roots = pad_step(self.queues, pos, T, batch=self.batch)
+            size = int(size * self.beta)
+            yield Step(pos=pos, end=pos + T, roots=roots,
+                       valid=roots >= 0, next_size=size)
+            pos += T

@@ -6,6 +6,9 @@
   accumulates on the device and is read at commit points (every commit
   for an ``eager_stats`` policy or a checkpointed run, else once at the
   end of the run), so the dispatch never waits on it mid-superstep.
+- :class:`MeshTableSink` holds the distributed builds' hub-partitioned
+  label tables, one ``[n, cap]`` table a node on the node's device
+  (the reference's ``[q, n, cap]`` table sharded by node);
 - :class:`StreamingShardSink` hub-partitions each commit's emissions
   straight into per-shard host arrays
   (`repro_torch.parallel.ShardAccumulator`): the dense ``[n, cap]``
@@ -19,7 +22,7 @@ every algorithm checkpoints and resumes.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -170,3 +173,65 @@ class StreamingShardSink:
 
     def load_state(self, arrays) -> None:
         self.acc.load_state(arrays)
+
+
+class MeshTableSink:
+    """The distributed builds' hub-partitioned tables: node ``i``'s
+    ``[n, cap]`` table on ``mesh.devices[i]``.
+
+    The policy's superstep inserts into the nodes' tables and hands them
+    back through :meth:`set_table`; the sink owns placement, the
+    overflow verdict and the checkpoint payload, whose arrays are the
+    reference's ``[q, n, cap]`` stack.
+    """
+
+    kind = "mesh"
+
+    def __init__(self, mesh, n: int, cap: int):
+        self.mesh = mesh
+        self.n = int(n)
+        self.cap = int(cap)
+        self.q = mesh.q
+        # distinct tensors per node, even where nodes share a device
+        self.tables: List[LabelTable] = [lbl.empty(self.n, self.cap, d)
+                                         for d in mesh.devices]
+        self._host_ovf = False
+
+    def set_table(self, tables: Sequence[LabelTable]) -> None:
+        self.tables = list(tables)
+
+    def note_overflow(self, flag: bool) -> None:
+        self._host_ovf = self._host_ovf or bool(flag)
+
+    def overflowed(self) -> bool:
+        return self._host_ovf
+
+    def raise_on_overflow(self) -> None:
+        if self._host_ovf:
+            raise LabelOverflowError(self.cap)
+
+    # --------------------------------------------- checkpoint payload
+
+    def meta(self) -> dict:
+        return {"kind": self.kind, "cap": self.cap, "n": self.n,
+                "q": self.q}
+
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        """The ``[q, n, cap]`` hubs/dist and ``[q, n]`` counts, stacked
+        on the host (the manager writes them from there)."""
+        return {f: torch.stack([getattr(t, f).cpu() for t in self.tables])
+                for f in ("hubs", "dist", "count")}
+
+    def load_state(self, arrays) -> None:
+        """Adopt restored ``[q, n, L]`` arrays, padded to this sink's
+        cap, one node's slice to each node's device."""
+        hubs, dist = _pad_table_arrays(
+            torch.as_tensor(np.asarray(arrays["hubs"]), dtype=torch.int32),
+            torch.as_tensor(np.asarray(arrays["dist"]),
+                            dtype=torch.float32), self.cap)
+        count = torch.as_tensor(np.asarray(arrays["count"]),
+                                dtype=torch.int32)
+        self.tables = [LabelTable(hubs[i].to(d).contiguous(),
+                                  dist[i].to(d).contiguous(),
+                                  count[i].to(d).contiguous())
+                       for i, d in enumerate(self.mesh.devices)]

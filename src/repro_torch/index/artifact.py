@@ -101,12 +101,16 @@ class CHLIndex:
     ``store`` (a :class:`~repro_torch.index.store.LabelStore`) holds the
     labels of an undirected graph; ``l_out``/``l_in`` those of a
     directed one (paper footnote 1's forward/backward labels, dense
-    tables on one device)."""
+    tables on one device). ``partitioned`` is a distributed build's
+    construction-time hub partition, one ``[n, L]`` table a node (QFDL
+    serves straight from it; otherwise its layout comes from the store
+    or is synthesized from ``rank``)."""
 
     def __init__(self, store: Optional[LabelStore] = None, *,
                  l_out: Optional[LabelTable] = None,
                  l_in: Optional[LabelTable] = None,
-                 plan: BuildPlan, report: BuildReport, rank: np.ndarray):
+                 plan: BuildPlan, report: BuildReport, rank: np.ndarray,
+                 partitioned: Optional[List[LabelTable]] = None):
         if (store is None) == (l_out is None):
             raise ValueError("exactly one of `store` or the "
                              "`l_out`/`l_in` pair must be given")
@@ -123,6 +127,7 @@ class CHLIndex:
         self.plan = plan
         self.report = report
         self.rank = np.asarray(rank)
+        self.partitioned = partitioned
         # live QueryServices handed out by serve(), kept weakly with
         # the knobs needed to rebuild their answer fns after apply()
         self._services: List[Tuple[weakref.ref, dict]] = []
@@ -177,7 +182,8 @@ class CHLIndex:
 
     # --------------------------------------------------------- serve
 
-    def serve(self, mode: str = "qlsn", *, batch_size: int = 1024,
+    def serve(self, mode: str = "qlsn", *, mesh=None,
+              batch_size: int = 1024,
               drop_first: bool = True, deadline_ms: float = 2.0,
               cache: int = 0, max_queue: Optional[int] = None,
               routed: Optional[bool] = None,
@@ -185,10 +191,13 @@ class CHLIndex:
               breaker_threshold: int = 5,
               breaker_reset_s: float = 30.0) -> QueryService:
         """The serving tier (:class:`repro_torch.serve.QueryService`)
-        over this index's labels; see the service for the knobs.
-        ``routed`` overrides per-shard routing of a sharded, spill or
-        compressed store (``None``: routed when it has several shards).
-        A directed index serves QLSN from its ``L_out``/``L_in`` pair,
+        over this index's labels in any §6.3 storage mode (``"qlsn"``,
+        ``"qfdl"``, ``"qdol"``); see the service for the knobs. ``mesh``
+        (a `NodeMesh`) hosts the distributed modes (default: one node
+        per device of the store's type). ``routed`` overrides per-shard
+        routing of a sharded, spill or compressed store (``None``:
+        routed when it has several shards). A spill store serves QLSN
+        only. A directed index serves QLSN from its ``L_out``/``L_in`` pair,
         with the answer cache built ``symmetric=False``: d(u->v) and
         d(v->u) never share an entry.
 
@@ -196,7 +205,7 @@ class CHLIndex:
         :meth:`apply` re-installs every live service's answer fn and
         bumps its cache epoch, so a mutated index never serves a stale
         answer."""
-        svc = QueryService(self._answer_fn(mode, routed=routed),
+        svc = QueryService(self._answer_fn(mode, mesh=mesh, routed=routed),
                            batch_size=batch_size, drop_first=drop_first,
                            deadline_s=deadline_ms * 1e-3,
                            cache_size=cache, max_queue=max_queue,
@@ -206,10 +215,12 @@ class CHLIndex:
                            breaker_threshold=breaker_threshold,
                            breaker_reset_s=breaker_reset_s)
         self._services.append((weakref.ref(svc),
-                               {"mode": mode, "routed": routed}))
+                               {"mode": mode, "mesh": mesh,
+                                "routed": routed}))
         return svc
 
-    def _answer_fn(self, mode: str, routed: Optional[bool] = None):
+    def _answer_fn(self, mode: str, mesh=None,
+                   routed: Optional[bool] = None):
         """The serving answer callable over the current labels (what
         serve() installs and apply() re-installs)."""
         if self.directed:
@@ -217,7 +228,9 @@ class CHLIndex:
                 raise NotImplementedError(
                     "directed serving currently supports mode='qlsn'")
             return lambda u, v: self._directed_query(u, v)
-        return backends.make_answer_fn(self.store, mode, routed=routed)
+        return backends.make_answer_fn(self.store, mode, mesh=mesh,
+                                       partitioned=self.partitioned,
+                                       rank=self.rank, routed=routed)
 
     # --------------------------------------------------------- mutate
 

@@ -18,8 +18,11 @@ consult their global table while building, so they build dense and
 re-home. ``store="compressed"`` builds as ``"sharded"`` does (streamed
 for PLaNT/pll-ref) and encodes the shards afterwards; the report notes
 the codec. ``algo="directed"`` builds the dense ``L_out``/``L_in``
-pair. The distributed algorithms raise ``NotImplementedError`` naming
-their ROADMAP item.
+pair. The distributed algorithms (``dgll``, ``hybrid``, the default,
+and ``plant-dist``) build on a node mesh (``mesh=``, default: one node
+per card, at most ``plan.mesh_devices``): their per-node partitions
+are merged into the store and handed to the index as ``partitioned``,
+from which QFDL serves.
 """
 
 from __future__ import annotations
@@ -33,8 +36,7 @@ import torch
 from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelOverflowError
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import PORTED_ALGOS, STREAMING_ALGOS, run_build
-from repro_torch.engine.runner import unported_algo
+from repro_torch.engine import STREAMING_ALGOS, run_build
 from repro_torch.index.artifact import CHLIndex
 from repro_torch.index.plan import BuildPlan
 from repro_torch.index.report import BuildReport, OverflowEvent
@@ -42,27 +44,37 @@ from repro_torch.index.store import CompressedStore, DenseStore, ShardedStore
 from repro_torch.kernels.ell_relax import layout_plan, windowed_note
 
 
-def _resolve_shards(plan: BuildPlan, device) -> int:
+def _resolve_shards(plan: BuildPlan, device,
+                    extras: Optional[dict] = None) -> int:
     """The shard-count rule: the plan's ``shards`` if set, else the
-    number of devices of the build's device type (1 on the CPU)."""
+    build mesh's size (distributed algorithms), else the number of
+    devices of the build's device type (1 on the CPU)."""
     if plan.shards:
         return plan.shards
-    if device.type == "cuda":
-        return max(1, torch.cuda.device_count())
-    return 1
+    K = int((extras or {}).get("q") or 1)
+    if K == 1 and device.type == "cuda":
+        K = max(1, torch.cuda.device_count())
+    return K
 
 
 def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
-          device: DeviceLike = None, ckpt=None, resume: bool = False,
-          verbose: bool = False) -> CHLIndex:
-    """Construct a :class:`CHLIndex` per ``plan`` on ``device``
-    (default: the card; raises without CUDA). ``ckpt`` (a
-    ``CheckpointManager``) checkpoints every committed superstep;
-    ``resume`` continues from the last compatible one."""
-    dev = resolve_device(device)
+          mesh=None, device: DeviceLike = None, ckpt=None,
+          resume: bool = False, verbose: bool = False) -> CHLIndex:
+    """Construct a :class:`CHLIndex` per ``plan`` (default: the hybrid)
+    on ``device`` (default: the card; raises without CUDA). A
+    distributed algorithm builds on ``mesh`` (a `NodeMesh`, e.g.
+    ``NodeMesh.logical(8, "cuda")``; default: one node per device of
+    ``device``'s type, at most ``plan.mesh_devices``), and the store
+    lands on node 0's device. ``ckpt`` (a ``CheckpointManager``)
+    checkpoints every committed superstep; ``resume`` continues from
+    the last compatible one."""
     plan = plan or BuildPlan()
-    if plan.algo not in PORTED_ALGOS:
-        raise unported_algo(plan.algo)
+    if plan.distributed:
+        from repro_torch.parallel.mesh import make_node_mesh
+        mesh = mesh or make_node_mesh(plan.mesh_devices, device=device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     if plan.algo == "directed" and not g.directed:
         raise ValueError("algo='directed' needs a directed graph")
     if plan.algo != "directed" and g.directed:
@@ -93,7 +105,12 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
             # the first attempt resumes only on request; regrow retries
             # resume whenever checkpoints exist
             res = run_build(g, rank, algo=plan.algo, batch=plan.batch,
-                            cap=cap, alpha=plan.alpha,
+                            cap=cap, alpha=plan.alpha, mesh=mesh,
+                            beta=plan.beta,
+                            first_superstep=plan.first_superstep,
+                            eta=plan.eta, hc_cap=plan.hc_cap,
+                            psi_threshold=plan.psi_th,
+                            compact=plan.compact,
                             streaming_shards=streaming_shards, device=dev,
                             ckpt=ckpt,
                             resume=(resume if attempt == 0
@@ -122,6 +139,9 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     report_kw = dict(
         algo=plan.algo, wall_s=wall, cap=cap, supersteps=list(res.records),
         overflow_events=overflow_events, notes=notes,
+        comm_label_slots=int(res.counters.get("comm_label_slots", 0)),
+        psi_threshold=res.extras.get("psi_threshold"),
+        q=int(res.extras.get("q", 1)),
         cleaned=int(res.counters.get("cleaned", 0)),
         constructed=int(res.counters.get("constructed", 0)))
     if plan.algo == "directed":
@@ -131,21 +151,29 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
                              **report_kw)
         return CHLIndex(l_out=l_out, l_in=l_in, plan=plan, report=report,
                         rank=rank)
+    partitioned = res.extras.get("partitioned")
     if res.sink.kind == "sharded":       # streamed: the shards are the build
         store = ShardedStore.from_accumulator(res.sink.acc, device=dev)
         if plan.store == "compressed":
             store = CompressedStore.from_store(
                 store, rank, codec=plan.codec or "bf16",
                 exact=plan.quant_exact)
-    elif plan.store == "sharded":
-        store = ShardedStore.from_table(res.sink.table(), rank,
-                                        _resolve_shards(plan, dev))
-    elif plan.store == "compressed":
-        store = CompressedStore.from_table(
-            res.sink.table(), rank, codec=plan.codec or "bf16",
-            exact=plan.quant_exact, shards=_resolve_shards(plan, dev))
     else:
-        store = DenseStore(res.sink.table())
+        if res.sink.kind == "mesh":
+            from repro_torch.core.dgll import merge_partitions
+            table = merge_partitions(res.sink.tables)
+        else:
+            table = res.sink.table()
+        if plan.store == "sharded":
+            store = ShardedStore.from_table(
+                table, rank, _resolve_shards(plan, dev, res.extras))
+        elif plan.store == "compressed":
+            store = CompressedStore.from_table(
+                table, rank, codec=plan.codec or "bf16",
+                exact=plan.quant_exact,
+                shards=_resolve_shards(plan, dev, res.extras))
+        else:
+            store = DenseStore(table)
     if isinstance(store, CompressedStore):
         if store.exact:
             notes.append(f"quant: codec={store.codec} exact "
@@ -156,4 +184,5 @@ def build(g, rank: np.ndarray, plan: Optional[BuildPlan] = None, *,
     total = store.total_labels
     report = BuildReport(total_labels=total, als=total / max(1, n),
                          **report_kw)
-    return CHLIndex(store, plan=plan, report=report, rank=rank)
+    return CHLIndex(store, plan=plan, report=report, rank=rank,
+                    partitioned=partitioned)

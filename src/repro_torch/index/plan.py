@@ -2,8 +2,8 @@
 
 A copy of the reference package's plan, field for field, so that
 ``to_dict()`` and the on-disk manifest match. Every algorithm and store
-name the reference accepts validates here; `repro_torch.index.build`
-says which of them this port builds so far.
+name the reference accepts validates here, and the port builds every
+algorithm.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from repro_torch.index.quant.codecs import DIST_CODECS
 ALGOS = ("plant", "gll", "lcc", "parapll", "dgll", "hybrid",
          "plant-dist", "directed", "pll-ref")
 
-#: algorithms that run on a device mesh (superstep driver, §5)
+#: algorithms that run on a node mesh (superstep driver, §5)
 DISTRIBUTED_ALGOS = ("dgll", "hybrid", "plant-dist")
 
 #: store kinds a plan may request ("spill" is a load-time residency)
@@ -86,6 +86,10 @@ class BuildPlan:
                                            or self.quant_exact):
             raise ValueError(
                 "codec / quant_exact apply only to store='compressed'")
+
+    @property
+    def distributed(self) -> bool:
+        return self.algo in DISTRIBUTED_ALGOS
 
     @classmethod
     def from_args(cls, args, **overrides) -> "BuildPlan":

@@ -1,5 +1,10 @@
 """`BuildReport` — the typed stats contract of a build (a copy of the
-reference package's, so that ``to_dict()`` and manifests match)."""
+reference package's, so that ``to_dict()`` and manifests match).
+
+The engine's typed per-superstep records feed ``BuildReport.supersteps``
+directly; :func:`normalize_stats` maps the legacy ``*_chl`` stats dicts
+(a distributed trace, PLaNT's per-batch lists, GLL's counters) onto the
+same fields."""
 
 from __future__ import annotations
 
@@ -69,4 +74,39 @@ class BuildReport:
                  f"wall={self.wall_s:.1f}s"]
         if self.cap_retries:
             parts.append(f"cap_retries={self.cap_retries}")
+        if self.comm_label_slots:
+            parts.append(f"comm_slots={self.comm_label_slots:,}")
         return " ".join(parts)
+
+
+def normalize_stats(algo: str, stats: Optional[dict]) -> dict:
+    """Map a ``*_chl`` stats dict onto ``BuildReport`` keyword arguments
+    (all but algo/wall/labels/als/cap, which a caller computes)."""
+    out: dict = {"supersteps": [], "comm_label_slots": 0,
+                 "psi_threshold": None, "q": 1,
+                 "cleaned": 0, "constructed": 0}
+    if not stats:
+        return out
+    if "mode" in stats:              # distributed driver trace
+        sweeps = stats.get("sweeps", [None] * len(stats["mode"]))
+        out["supersteps"] = [
+            SuperstepStat(mode=m, labels=l, explored=e, sweeps=s, psi=p)
+            for m, l, e, s, p in zip(stats["mode"], stats["labels"],
+                                     stats["explored"], sweeps,
+                                     stats["psi"])]
+        out["comm_label_slots"] = int(stats.get("comm_label_slots", 0))
+        out["psi_threshold"] = stats.get("psi_threshold")
+        out["q"] = int(stats.get("q", 1))
+    elif "psi" in stats:             # plant_chl per-batch lists
+        sweeps = stats.get("sweeps", [None] * len(stats["psi"]))
+        out["supersteps"] = [
+            SuperstepStat(mode="plant", labels=l, explored=e,
+                          sweeps=s, psi=p)
+            for l, e, s, p in zip(stats["labels"], stats["explored"],
+                                  sweeps, stats["psi"])]
+    elif "superstep_sizes" in stats:  # gll_chl counters
+        out["supersteps"] = [SuperstepStat(mode=algo, labels=sz)
+                             for sz in stats["superstep_sizes"]]
+        out["cleaned"] = int(stats.get("cleaned", 0))
+        out["constructed"] = int(stats.get("constructed", 0))
+    return out

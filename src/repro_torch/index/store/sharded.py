@@ -12,12 +12,14 @@ card a query is K launches of the hand-written ``label_query`` kernel,
 one over each shard's ``[n, Ls]`` view, then one ``torch.min`` over the
 shard axis (whose first-index rule picks the lowest shard on a tie, as
 the reference's ``argmin`` does) and a gather of the winning shard's
-hub; on the CPU the plain query per shard.
+hub; on the CPU the plain query per shard. :meth:`as_partitioned`
+places shard ``k`` on node ``k`` of a node mesh, so QFDL serves from the
+store's own layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +134,16 @@ class ShardedStore:
     def shard_label_bytes(self) -> list:
         """Per-shard resident label bytes."""
         return [int(c) * 8 for c in self.count.sum(dim=1).tolist()]
+
+    def as_partitioned(self, mesh) -> List[LabelTable]:
+        """The shards as QFDL's per-node partitions: shard ``k`` on node
+        ``k``'s device (views where it is the store's device); needs
+        ``mesh.q == num_shards``."""
+        if mesh.q != self.num_shards:
+            raise ValueError(f"mesh has {mesh.q} nodes but the store has "
+                             f"{self.num_shards} shards")
+        return [LabelTable(*(x.to(d) for x in t))
+                for t, d in zip(self._views, mesh.devices)]
 
     # ------------------------------------------------- constructors
 

@@ -827,3 +827,80 @@ def test_code_gathers_and_decoders_on_card_equal_numpy(cuda_device):
         torch.as_tensor(order, device=cuda_device))
     want = quant.delta_decode_rows_np(deltas, cnt, order)[ids[ids < n]]
     assert np.array_equal(dev.cpu().numpy(), want)
+
+
+DIST_PLANS = {
+    "hybrid": BuildPlan(algo="hybrid", batch=4, eta=4, psi_th=2.0),
+    "hybrid-compact": BuildPlan(algo="hybrid", batch=4, eta=4, psi_th=2.0,
+                                compact=16),
+    "dgll": BuildPlan(algo="dgll", batch=4, beta=4.0),
+    "plant-dist": BuildPlan(algo="plant-dist", batch=4),
+}
+
+
+@pytest.mark.parametrize("windows", [False, True])
+@pytest.mark.parametrize("what", sorted(DIST_PLANS))
+def test_distributed_builds_on_card_equal_cpu(cuda_device, what, windows,
+                                              monkeypatch):
+    """An 8-node logical mesh on the card gives the CPU mesh's per-node
+    partitions, merged table and records (the node steps' sweeps on the
+    dense kernel, or with ``windows`` an L2 that forces 3 source
+    windows, on the windowed one); a PLaNT superstep calls no
+    collective and a DGLL superstep at least one."""
+    from repro_torch.core.dgll import stack_partitions
+    from repro_torch.parallel import NodeMesh
+    from repro_torch.parallel import collectives as coll
+    g = scale_free(300, attach=2, seed=3)
+    rank = degree_ranking(g)
+    plan = DIST_PLANS[what]
+    cpu = build(g, rank, plan, mesh=NodeMesh.logical(8, "cpu"))
+    if windows:
+        monkeypatch.setattr(port_layout, "l2_bytes",
+                            lambda device: 2 * 8 * 4 * 128)
+    for k in (ELL_RELAX, WINDOWED_KERNEL):
+        k.launches = 0
+    coll.reset_counts()
+    card = build(g, rank, plan, mesh=NodeMesh.logical(8, cuda_device))
+    calls = coll.total_calls()
+    assert (WINDOWED_KERNEL if windows else ELL_RELAX).launches > 0
+    assert (ELL_RELAX if windows else WINDOWED_KERNEL).launches == 0
+    modes = {r.mode for r in card.report.supersteps}
+    if modes <= {"plant", "plant-hc"}:
+        assert calls == 0
+    else:
+        assert calls > 0
+    for a, b in zip(stack_partitions(card.partitioned),
+                    stack_partitions(cpu.partitioned)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    for a, b in zip(card.table, cpu.table):
+        assert torch.equal(a.cpu(), b)
+    assert card.report.supersteps == cpu.report.supersteps
+    assert card.report.comm_label_slots == cpu.report.comm_label_slots
+
+
+@pytest.mark.parametrize("q", [1, 3, 8])
+def test_query_modes_on_card_equal_qlsn(cuda_device, q):
+    """qfdl (one table-form launch a node, then ``pmin``) and qdol (one
+    operand-form launch a node over its gathered rows) on a q-node
+    logical mesh on the card equal qlsn and the CPU's answers."""
+    from repro_torch.parallel import NodeMesh
+    g = grid_road(9, 11, seed=2)
+    rank = degree_ranking(g)
+    plan = BuildPlan(algo="hybrid", batch=4, eta=4, psi_th=2.0)
+    card = build(g, rank, plan, mesh=NodeMesh.logical(q, cuda_device))
+    cpu = build(g, rank, plan, mesh=NodeMesh.logical(q, "cpu"))
+    rng = np.random.default_rng(q)
+    u, v = rng.integers(0, g.n, 700), rng.integers(0, g.n, 700)
+    want = cpu.query(u, v)
+    assert np.array_equal(card.query(u, v), want)
+    for mode in ("qfdl", "qdol"):
+        LABEL_QUERY.launches = 0
+        svc = card.serve(mode=mode, mesh=NodeMesh.logical(q, cuda_device),
+                         batch_size=700)
+        svc.submit(u, v)
+        assert np.array_equal(svc.flush(), want), mode
+        assert LABEL_QUERY.launches == q        # one launch a node
+        svc = cpu.serve(mode=mode, mesh=NodeMesh.logical(q, "cpu"),
+                        batch_size=256)
+        svc.submit(u, v)
+        assert np.array_equal(svc.flush(), want), mode

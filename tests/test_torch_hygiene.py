@@ -6,7 +6,11 @@
   of running on the CPU;
 - CPU tensors never launch a kernel (the launch counts stay at 0);
 - narrow storage dtypes of label arrays appear only in the codec layer
-  (``index/quant/`` and ``index/store/``).
+  (``index/quant/`` and ``index/store/``);
+- the per-algorithm ``*_chl`` constructors are the deprecated engine
+  layer: ``repro_torch.core`` re-exports them behind the reference's
+  ``DeprecationWarning``, and no module outside ``repro_torch/core/``
+  and ``repro_torch/index/`` (nor the top-level scripts) imports them.
 """
 
 import ast
@@ -58,7 +62,12 @@ def test_port_tree_is_found():
                    "index/store/sharded.py", "serve/routing.py",
                    "index/quant/codecs.py", "index/quant/deltas.py",
                    "index/store/spill.py", "index/store/compressed.py",
-                   "serve/loadgen.py", "launch/serve_chl.py"):
+                   "serve/loadgen.py", "launch/serve_chl.py",
+                   "configs/chl_common.py", "configs/chl_road.py",
+                   "configs/chl_scalefree.py", "parallel/mesh.py",
+                   "parallel/collectives.py", "core/dgll.py",
+                   "core/hybrid.py", "core/query.py", "engine/dist.py",
+                   "ft/elastic.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(names) > 20
 
@@ -199,3 +208,71 @@ def test_spill_and_compressed_paths_launch_no_kernel_on_the_cpu(tmp_path):
         srv.submit(u, u[::-1])
         assert np.array_equal(srv.flush(), idx.query(u, u[::-1]))
     assert [k.launches for k in kernels] == before == [0] * len(kernels)
+
+
+SHIM_NAMES = ("plant_chl", "gll_chl", "lcc_chl", "parapll_chl", "dgll_chl",
+              "hybrid_chl", "plant_distributed_chl")
+
+
+def test_no_engine_shim_call_sites_outside_index():
+    """The port's counterpart of the reference's
+    ``test_store.py::test_no_engine_shim_call_sites_outside_index``: the
+    ``*_chl`` constructors are the deprecated engine layer, imported by
+    nothing but their defining package (``repro_torch/core/``) and the
+    facade (``repro_torch/index/``), and by the tests."""
+    import re
+    import_pat = re.compile(
+        r"from\s+repro_torch\.core(?:\.\w+)?\s+import\s+[^\n]*\b("
+        + "|".join(SHIM_NAMES) + r")\b")
+    call_pat = re.compile(r"\b(?:core|gll|dgll|hybrid|plant)\.("
+                          + "|".join(SHIM_NAMES) + r")\(")
+    offenders = []
+    for path in PORT_FILES + [ROOT / "kernel_ab.py"]:
+        rel = path.relative_to(ROOT).as_posix()
+        if rel.startswith(("src/repro_torch/core/",
+                           "src/repro_torch/index/")):
+            continue
+        text = path.read_text()
+        for pat in (import_pat, call_pat):
+            m = pat.search(text)
+            if m:
+                offenders.append(f"{rel}: uses engine shim {m.group(1)}")
+    assert not offenders, (
+        "deprecated engine-layer shims used outside repro_torch/index and "
+        "tests:\n  " + "\n  ".join(offenders))
+
+
+@pytest.mark.parametrize("name", SHIM_NAMES)
+def test_core_shims_warn_like_the_reference(name):
+    """Each ``repro_torch.core.*_chl`` re-export emits the reference's
+    ``DeprecationWarning``, word for word with ``repro_torch`` for
+    ``repro``, before it runs (here on a non-graph, which then fails, or,
+    for the port's distributed ones, refuses without a card)."""
+    import repro.core as ref_core
+    import repro_torch.core as port_core
+    msgs = []
+    for mod in (ref_core, port_core):
+        with pytest.warns(DeprecationWarning) as rec:
+            with pytest.raises((AttributeError, RuntimeError)):
+                getattr(mod, name)(None, np.zeros(1, np.int32))
+        msgs.append(str(rec[0].message))
+    ref_msg, port_msg = msgs
+    assert ref_msg.startswith(f"repro.core.{name} is a deprecated")
+    assert port_msg == ref_msg.replace("repro.", "repro_torch.")
+    # the defining modules stay warning-free and build
+    g = grid_road(3, 4, seed=0)
+    rank = degree_ranking(g)
+    import warnings
+    from repro_torch.core import dgll, gll, hybrid, plant
+    from repro_torch.parallel import NodeMesh
+    fn = next(getattr(m, name) for m in (plant, gll, dgll, hybrid)
+              if hasattr(m, name))
+    kw = ({"mesh": NodeMesh(["cpu"])} if name in ("dgll_chl", "hybrid_chl",
+                                                  "plant_distributed_chl")
+          else {"device": "cpu"})
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        table, _ = fn(g, rank, **kw)
+    with pytest.warns(DeprecationWarning):
+        again, _ = getattr(port_core, name)(g, rank, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(table, again))

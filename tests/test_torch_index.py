@@ -144,12 +144,12 @@ def test_load_rejects_corruption_and_foreign_rank(built, tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the port does not build or serve yet raises, citing its
-    ROADMAP item (item 11: the distributed algorithms and qfdl/qdol),
-    and the reference's permanent refusals stay: a compressed artifact
-    is not memory-mapped, ``apply()`` needs a writable store and an
-    undirected index. Directed, sharded and compressed builds, spill and
-    compressed loads and version-2 artifacts now work."""
+    """Every algorithm and query mode is ported: the distributed
+    algorithms build and qfdl/qdol serve. The reference's permanent
+    refusals stay: a compressed artifact is not memory-mapped,
+    ``apply()`` needs a writable store and an undirected index. Directed,
+    sharded and compressed builds, spill and compressed loads and
+    version-2 artifacts work."""
     from repro_torch.index.store import CompressedStore, SpillStore
     g, rank = _case("grid")
     pg = interop.graph(g)
@@ -165,13 +165,16 @@ def test_unported_paths_raise(tmp_path):
                                      codec="u16", quant_exact=True),
                  device="cpu")
     assert isinstance(comp.store, CompressedStore)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build(pg, rank, BuildPlan(algo="dgll"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_build(pg, rank, algo="hybrid", device="cpu")
+    # now ported: the distributed algorithms and the qfdl/qdol modes
+    assert build(pg, rank, BuildPlan(algo="dgll"),
+                 device="cpu").report.q == 1
+    assert run_build(pg, rank, algo="hybrid",
+                     device="cpu").sink.kind == "mesh"
     idx = build(pg, rank, BuildPlan(algo="plant"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        idx.serve(mode="qfdl")
+    u, v = np.arange(pg.n), np.arange(pg.n)[::-1].copy()
+    srv = idx.serve(mode="qfdl")
+    srv.submit(u, v)
+    np.testing.assert_array_equal(srv.flush(), idx.query(u, v))
     # apply() on a directed index keeps the reference's refusal
     idxd = build(gd, degree_ranking(gd), BuildPlan(algo="directed"),
                  device="cpu")

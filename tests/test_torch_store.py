@@ -579,8 +579,10 @@ def test_make_answer_fn_routed_flag(built):
     fn = make_answer_fn(dense.store, "qlsn", routed=True)  # never routes
     assert not isinstance(fn, RoutedAnswer)
     np.testing.assert_array_equal(fn(u, v).numpy(), ref)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_answer_fn(sharded.store, "qfdl")
+    # qfdl never routes: the stacked reduction off a matching mesh
+    np.testing.assert_array_equal(
+        make_answer_fn(sharded.store, "qfdl", routed=True)(u, v).numpy(),
+        ref)
 
 
 def test_sharded_query_device_returns_tensors(built):
