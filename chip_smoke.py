@@ -59,9 +59,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    batch 16 (PLaNT on G into L_in and on its reverse into L_out each
    batch); 65,536 pairs served through ``serve(mode="qlsn")`` (one
    two-table label_query launch a flush) equal scipy's Dijkstra on the
-   digraph; save -> load gives equal tables; a run stopped by a soft
-   crash at its second ``engine.commit`` resumes to the uninterrupted
-   out and in tables;
+   digraph; save -> load gives equal tables; on
+   random_connected(1024, 2048 extra arcs, directed) a run stopped by a
+   soft crash at its second ``engine.commit`` resumes to the
+   uninterrupted out and in tables;
 3f. sharded exactness: ``build(store="sharded", shards=4)`` on phase 3's
    graph (PLaNT streamed into the hub shards) equals phase 3's table
    re-homed by ``ShardedStore.from_table``; routed serving equals
@@ -96,7 +97,24 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    superstep 2 and a heartbeat monitor of patience 1 declares it lost,
    re-plants its tail on the survivors and lands the same label sets;
    the 8-node hybrid on the card equals the CPU's (partitions, merged
-   table, records) on grid_road(24, 24);
+   table, records) on grid_road(16, 16);
+3i. entry points: ``python -m repro_torch.launch.ft_smoke`` (the
+   six-leg kill matrix at its default n = 144, nine child processes on
+   the card) in its own process, started before phase 3h and waited for
+   at the end of 3i; in this process ``launch.chl.main`` with the default algorithm (the hybrid,
+   one node) on ``--graph road --n 4096 --seed 7`` (phase 3's graph
+   under the launcher's ranking) with a checkpoint a superstep and
+   65,536 qdol queries: its label sets equal a card PLaNT build's, the
+   pairs equal scipy's Dijkstra, ``--resume`` gives an equal table, a
+   compressed u16-exact run answers them equally and a sharded PLaNT
+   run's K = 4 shards equal the PLaNT index re-homed; ``write_dimacs``
+   and ``launch.chl`` on the ``.gr`` file (PLaNT, batch 32) answer them
+   equally, and ``read_dimacs`` and ``load_npz(save_npz)`` give the
+   graph's arrays; ``mutate_chl --verify-rebuild`` on the saved index
+   prints "verify-rebuild: bit-identical"; the four examples run their
+   ``main(device)``; ``QueryServer.build`` on phase 3's table warns and
+   answers equal to ``query``. The road, random and directed graphs of
+   phases 5-7 are made on one host thread beside phases 3h and 3i;
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card;
@@ -113,12 +131,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    ``engine.commit`` and resumed by a fresh policy and manager, equal
    to phase 5's table; logs each step's bytes, the save (copy to the
    host, npz write), the restore and the fingerprint hash;
-5b. GLL road superstep: ``GLLPolicy`` (alpha = 4) through
-   ``engine.run`` on phase 5's graph, batch, cap and first batch of 4
-   roots (the schedule cut to them), whose table must equal phase 5's
-   PLaNT table restricted to those roots; then a profiler window over a
-   fresh run's batch and flush, split
-   into the relaxation kernel, the sweep loop's mask/frontier ops, the
+5b. GLL road superstep: ``GLLPolicy`` (alpha = 4) on phase 5's graph,
+   batch, cap and first batch of 4 roots (the schedule cut to them),
+   its batch and flush run once under a profiler window, the table
+   equal to phase 5's PLaNT table restricted to those roots, the time
+   split into the relaxation kernel, the sweep loop's mask/frontier ops, the
    distance-query cover (``hub_distance_map`` + ``cover_distance``)
    and ``clean_superstep``;
 5c. sharded road: phase 5's first batch of 4 roots (same graph, batch
@@ -134,8 +151,7 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    ``CompressedStore.from_store(codec="u32", exact=True)`` (its
    partition kept): distances equal the stacked sharded answer and
    (dist, hub) the plain version's on the card; u16 exact raises
-   ``QuantRangeError`` (largest distance past 65,534); a bf16 encoding
-   logs its ``max_ulp_err``; the store saved (~1.3 GB) and loaded
+   ``QuantRangeError`` (largest distance past 65,534); the store saved (~1.3 GB) and loaded
    ``store="spill"`` with its checksums verified answers routed equal
    to the stacked query; logs the encode walls, label bytes, the
    query's device time and the spill query's host gather, copy and
@@ -150,7 +166,7 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    in a PLaNT superstep, at least one in the DGLL superstep; 65,536
    pairs from the 16 processed roots (the top ranks: exact) answer
    qlsn == qfdl == qdol, all finite, and equal scipy's Dijkstra from
-   two roots; then a profiler window over 16 HC-pruned sweeps;
+   the top root; then a profiler window over 16 HC-pruned sweeps;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
    sources spread over all n, at the chl-scalefree configuration's
    batch 4, 8 trees and cap 32, through the source-windowed sweep,
@@ -166,14 +182,15 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    G and its reverse each through the source-windowed sweep, then
    65,536 queries (h, v) and (v, h) for planted roots h (exact: every
    vertex ranked above h is planted) served in one flush, equal to the
-   plain query and, for two roots, to scipy's Dijkstra on G and on its
-   transpose; the two-table form is then timed at this state.
+   plain query and, for the top root, to scipy's Dijkstra on G and on
+   its transpose; the two-table form is then timed at this state.
 
 Launch counts are set to 0 just before each of phases 3-7 (and each
 build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
 repair of 3f, the spill loads of 3g and of 5d, each build and the query
-modes of 3h, the frontier and the road resume) and read just after it;
-a phase fails if a kernel of its path was not launched. Each log line
+modes of 3h, each step of 3i, the frontier and the road resume) and
+read just after it; a phase fails if a kernel of its path was not
+launched (ft_smoke's children count their own launches, not read). Each log line
 carries the seconds since the start.
 Phases 3-6 end by timing their kernels at the path's shapes beside the
 plain version and the memory/compute bound: ell_relax on a mid-build
@@ -251,6 +268,7 @@ SERVE_Q = 65_536
 # directed)) and the hub shards of the sharded phases: K = 4 on the road
 # state's first batch gives each shard one of its 4 trees
 DIRECTED_EXACT_N = 4096
+DIRECTED_RESUME_N = 1024
 EXACT_SHARDS = ROAD_SHARDS = 4
 # the synthetic full-row query state (no graph behind it): L = count =
 # 256, hubs from a shared pool so rows overlap, a table past the L2
@@ -259,8 +277,8 @@ SYNTH_N, SYNTH_L, SYNTH_POOL = 262_144, 256, 1024
 # a Ψ threshold below 1 (every label is an explored vertex, so Ψ >= 1)
 # switches the hybrid to DGLL after its first PLaNT superstep. The card
 # against the CPU on DIST_SMALL_SIDE^2 vertices (the CPU's run of the
-# 8-node hybrid at n = 4096 takes about a minute)
-DIST_Q, DIST_PSI_LOW, DIST_SMALL_SIDE = 8, 0.5, 24
+# 8-node hybrid takes about a minute at n = 4096, 4 s at 24 x 24)
+DIST_Q, DIST_PSI_LOW, DIST_SMALL_SIDE = 8, 0.5, 16
 # the road phase: 2 nodes, one common tree a node (eta = 2), one
 # HC-pruned PLaNT superstep of a batch of 4 trees a node, then one DGLL
 # superstep of 3 (8 trees a node in all, chl_road's trees_per_node, so
@@ -1015,44 +1033,31 @@ def first_trees_table(table, roots, k):
 
 
 def phase_gll_road(dev, kernels, g, rank, road) -> dict:
-    """One GLL superstep on the road state through ``engine.run`` over
-    phase 5's first batch of roots (ROAD_BATCH of its ROAD_TREES: a cut
-    in depth), held against phase 5's PLaNT table restricted to those
-    roots, then its time split."""
-    import torch
-    from repro_torch.core import labels as lbl
-    from repro_torch.engine import DenseSink, run
+    """One GLL superstep on the road state over phase 5's first batch of
+    roots (ROAD_BATCH of its ROAD_TREES: a cut in depth), run once,
+    under the profiler that splits its time (`gll_road_split`), and
+    held against phase 5's PLaNT table restricted to those roots."""
     roots = road["roots"][:ROAD_BATCH]
+    want = first_trees_table(road["table"], road["roots"], ROAD_BATCH)
     reset(kernels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run(gll_road_policy(dev, g, rank, roots),
-              DenseSink(g.n, ROAD_CAP, dev))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    split = gll_road_split(dev, g, rank, roots, want)
     launches = path_launches(kernels, ("ell_relax_windowed",), "gll road")
-    table = res.sink.table()
-    require(same_table(table, first_trees_table(road["table"], road["roots"],
-                                                ROAD_BATCH)),
-            "gll road: table != phase 5's PLaNT table of the same roots")
-    c = res.counters
-    log(f"gll road superstep: {len(res.records)} supersteps of "
-        f"{[r.trees for r in res.records]} trees, {len(roots)} roots in "
-        f"one batch, alpha {GLL_ALPHA}: wall {wall:.2f} s (phase 5's PLaNT "
-        f"superstep {road['wall']:.2f} s for {ROAD_TREES} roots in "
-        f"batches of {ROAD_BATCH}), constructed {c['constructed']}, "
-        f"cleaned {c['cleaned']}, {lbl.total_labels(table)} labels; table "
-        f"== phase 5's PLaNT table of these roots (torch.equal); launches "
-        f"{launches}")
-    del res, table
-    split = gll_road_split(dev, g, rank, roots)
-    return {"launches": launches, "wall": wall, "split": split}
+    c = split["counters"]
+    log(f"gll road superstep: one batch of {len(roots)} roots, alpha "
+        f"{GLL_ALPHA}: wall {split['host_s']:.2f} s under the profiler "
+        f"(phase 5's PLaNT superstep {road['wall']:.2f} s for {ROAD_TREES} "
+        f"roots in batches of {ROAD_BATCH}), constructed "
+        f"{c['constructed']}, cleaned {c['cleaned']}, {split['labels']} "
+        f"labels; table == phase 5's PLaNT table of these roots "
+        f"(torch.equal); launches {launches}")
+    return {"launches": launches, "wall": split["host_s"], "split": split}
 
 
-def gll_road_split(dev, g, rank, roots) -> dict:
-    """A fresh GLL run on the road roots (one batch): a
-    ``torch.profiler`` window (CUDA activity) over the batch and the
-    flush, with CUDA events around the same span. The window gives the
+def gll_road_split(dev, g, rank, roots, want) -> dict:
+    """The GLL run on the road roots (one batch, the engine's step and
+    epilogue): a ``torch.profiler`` window (CUDA activity) over the
+    batch and the flush, with CUDA events around the same span; its
+    table must equal ``want``. The window gives the
     device's busy time and the relaxation kernel's; the distance-query
     cover (both tables' ``hub_distance_map`` + ``cover_distance``, on
     the state the batch starts from: its work does not depend on the
@@ -1098,6 +1103,9 @@ def gll_road_split(dev, g, rank, roots) -> dict:
     sweeps = WINDOWED_KERNEL.launches - before      # one launch a sweep
     require(out is not None and out.record.trees == len(roots),
             "gll road split: the window holds no flush of all roots")
+    require(same_table(sink.table(), want),
+            "gll road: table != phase 5's PLaNT table of the same roots")
+    labels = int(sink.table().count.sum())
     stream_ms = ev[0].elapsed_time(ev[1])
     roots_t = torch.cat([b.roots for b in pending])
     emit = torch.cat([b.emit for b in pending])
@@ -1110,7 +1118,8 @@ def gll_road_split(dev, g, rank, roots) -> dict:
     kern = cuda_events(prof)
     parse = time.perf_counter() - t1
     split = {"stream_ms": stream_ms, "host_s": host, "cover_ms": cover_ms,
-             "clean_ms": clean_ms, "sweeps": sweeps}
+             "clean_ms": clean_ms, "sweeps": sweeps,
+             "counters": policy.counters(), "labels": labels}
     if not kern:
         log(f"gll road split: the profile holds no device time; stream "
             f"span {stream_ms:.1f} ms by CUDA events, cover {cover_ms:.3f}"
@@ -1696,6 +1705,14 @@ def phase_directed_exactness(dev, kernels) -> dict:
         f"s; {asym} pairs differ from their reverse); save->load tables "
         f"equal; launches {counts}")
 
+    # the crash and resume on a smaller digraph (a cut in depth: every
+    # commit of the resumed run saves both tables at the build's cap)
+    g = random_connected(DIRECTED_RESUME_N,
+                         extra_edges=2 * DIRECTED_RESUME_N, seed=7,
+                         directed=True)
+    rank = degree_ranking(g)
+    idx = build(g, rank, BuildPlan(algo="directed", batch=EXACT_BATCH),
+                device=dev)
     ckdir = scratch / "directed_ckpt"
     shutil.rmtree(ckdir, ignore_errors=True)
     reset(kernels)
@@ -1727,7 +1744,8 @@ def phase_directed_exactness(dev, kernels) -> dict:
             and same_table(res.sink.table("in"), idx.l_in),
             "directed resume: tables != the uninterrupted build's")
     shutil.rmtree(ckdir, ignore_errors=True)
-    log(f"directed resume: a soft crash at the second engine.commit, "
+    log(f"directed resume n={g.n}: a soft crash at the second "
+        f"engine.commit, "
         f"resumed from root cursor {res.resumed_from} in {resume_s:.2f} s "
         f"(a checkpoint of {g.n * idx.report.cap * 16:,} B of tables a "
         f"commit, at the build's cap); out and in tables == the uninterrupted "
@@ -2304,8 +2322,8 @@ def phase_spill_compressed_road(dev, kernels, rank, road, sharded) -> dict:
     ``CompressedStore.from_store(codec="u32", exact=True)``: on phase 5's
     SERVE_Q pairs the distances equal the stacked sharded answer and the
     hubs the plain version's (decoded rows through ``label_query_ref``
-    on the card); ``u16`` exact raises ``QuantRangeError``; bf16 lossy
-    logs its ``max_ulp_err``. The sharded store is saved and loaded
+    on the card); ``u16`` exact raises ``QuantRangeError`` (bf16's lossy
+    encoding is checked at exactness, phase 3g). The sharded store is saved and loaded
     ``store="spill"`` (checksums verified); its routed answer equals the
     stacked one. Logs the encode wall, label bytes against the sharded
     store's, the query's device time against the stacked query's, and
@@ -2346,12 +2364,6 @@ def phase_spill_compressed_road(dev, kernels, rank, road, sharded) -> dict:
     except QuantRangeError as e:
         refusal = str(e).split(" at scale")[0]
     refuse_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    bf = CompressedStore.from_store(store, rank, codec="bf16")
-    bf_s = time.perf_counter() - t0
-    bf_ulp = bf.max_ulp_err
-    bf_bytes = bf.label_bytes()
-    del bf
     comp_dev = label_query_device_ms(lambda: comp.query_device(u, v), 20,
                                      top=4)
     stacked_dev = label_query_device_ms(lambda: store.query_device(u, v), 20)
@@ -2419,8 +2431,7 @@ def phase_spill_compressed_road(dev, kernels, rank, road, sharded) -> dict:
         f"{stacked_ms:.4f} ms); its top device work a call "
         f"{[(n, round(ms, 4), k) for n, ms, k in comp_dev[2]]}; u16 exact "
         f"refused in {refuse_s:.2f} s "
-        f"({refusal}); bf16 lossy encode {bf_s:.2f} s, {bf_bytes:,} B, "
-        f"max_ulp_err {bf_ulp}; launches {counts}")
+        f"({refusal}); launches {counts}")
     log(f"spill road: save {save_s:.2f} s ({size:,} B on disk), load "
         f"spill with checksums {load_s:.2f} s, routed {routed_s * 1e3:.1f} "
         f"ms == stacked ({spill_counts['label_query']} launches); unrouted "
@@ -2432,8 +2443,7 @@ def phase_spill_compressed_road(dev, kernels, rank, road, sharded) -> dict:
                            "sharded_bytes": sharded_bytes,
                            "device_ms": comp_dev[0],
                            "device_ms_all": comp_dev[1], "ms": comp_ms,
-                           "stacked_device_ms_all": stacked_dev[1],
-                           "bf16_max_ulp_err": bf_ulp},
+                           "stacked_device_ms_all": stacked_dev[1]},
             "spill": {"save_s": save_s, "load_s": load_s, "bytes": size,
                       "routed_ms": routed_s * 1e3,
                       "gather_ms": gather_s * 1e3, "copy_ms": copy_s * 1e3,
@@ -2644,6 +2654,294 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
     return {"launches": launches, "walls": walls}
 
 
+# ------------------------------------------------------------ entry points
+
+#: the entry-point phase's launcher graph: ``--graph road --n 4096
+#: --seed 7`` is phase 3's grid_road(64, 64, seed=7) under the
+#: launcher's betweenness ranking (16 samples)
+ENTRY_ARGV = ["--graph", "road", "--n", "4096", "--seed", "7"]
+#: ft_smoke at its default n = 144 (the reference CI's setting), in its
+#: own process; the whole matrix has this long
+FT_SMOKE_TIMEOUT_S = 400
+
+
+class SideWork:
+    """Work beside phases 3h and 3i: ``python -m
+    repro_torch.launch.ft_smoke`` in its own process (ten processes in
+    all, each some seconds from start to the card) and, on one host
+    thread, the graph set-ups of phases 5-7 (host numpy, which releases
+    the GIL in its array work). ``close`` stops whatever still runs."""
+
+    def __init__(self, dev, setups):
+        from concurrent.futures import ThreadPoolExecutor
+        self.workdir = ROOT / "build" / "ft_smoke"   # git-ignored
+        self.t0 = time.perf_counter()
+        self.ft = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.ft_smoke",
+             "--workdir", str(self.workdir), "--device", str(dev)],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.pool = ThreadPoolExecutor(max_workers=1)
+        self.setups = [self.pool.submit(make) for make in setups]
+
+    def ft_smoke(self):
+        """Wait for ft_smoke (within FT_SMOKE_TIMEOUT_S of its start);
+        returns (exit code, output, seconds since its start)."""
+        out, _ = self.ft.communicate(timeout=max(
+            1.0, FT_SMOKE_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        return self.ft.returncode, out, time.perf_counter() - self.t0
+
+    def graphs(self):
+        """The set-ups' results, in order (waits for them)."""
+        return [f.result() for f in self.setups]
+
+    def close(self) -> None:
+        import shutil
+        if self.ft.poll() is None:
+            self.ft.kill()
+            self.ft.communicate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def quiet(fn, *args, **kw):
+    """``fn``'s result and its standard output, captured (the launchers
+    print a line a superstep)."""
+    import io
+    from contextlib import redirect_stdout
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def picked(text, *prefixes) -> str:
+    """The captured lines that start with one of ``prefixes``, joined
+    (long lines cut to 160 characters)."""
+    got = [ln[:160] for ln in text.splitlines() if ln.startswith(prefixes)]
+    return " | ".join(got)
+
+
+def phase_entry_points(dev, kernels, exact, side) -> dict:
+    """The entry points a user starts, on the card.
+
+    (4) ``python -m repro_torch.launch.ft_smoke`` (the six-leg kill
+    matrix, nine child processes on the card), started before phase 3h
+    (``side``, a `SideWork`), is waited for last. In this process:
+    (1) ``launch.chl.main`` with the default algorithm (the hybrid on
+    one node) on ENTRY_ARGV with a checkpoint a superstep and SERVE_Q
+    qdol queries: its label sets equal a card ``build(g, rank,
+    BuildPlan(algo="plant"))``, the same pairs served again in qdol
+    equal scipy's Dijkstra, ``--resume`` from the final cursor gives an
+    equal table, a ``--store compressed --codec u16 --quant-exact`` run
+    answers them equally, and a ``--store sharded --algo plant --shards
+    4`` run's shards equal the PLaNT index re-homed; (2) ``write_dimacs``
+    of the graph, then ``launch.chl --graph <file.gr> --algo plant``
+    answers them equally, and ``read_dimacs`` and ``load_npz(save_npz)``
+    give the graph's arrays; (3) ``mutate_chl.main --verify-rebuild`` on
+    step 1's artifact prints "verify-rebuild: bit-identical"; (5) the
+    four examples' ``main(device=dev)``, each asserting itself; (6)
+    ``QueryServer.build`` on phase 3's table answers equal to ``query``
+    and warns. Each step's wall and launches are logged; the counts are
+    those of this process (ft_smoke's children count their own)."""
+    import argparse
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.core import labels as lbl
+    from repro_torch.examples import (dynamic_repair, elastic_failover,
+                                      quickstart, serve_chl_queries)
+    from repro_torch.graphs.io import (load_npz, read_dimacs, save_npz,
+                                       write_dimacs)
+    from repro_torch.index import BuildPlan, build
+    from repro_torch.index.store import ShardedStore
+    from repro_torch.launch import chl, mutate_chl
+    from repro_torch.serve import QueryServer
+    root = ROOT / "build" / "entry_points"   # git-ignored, in the checkout
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    walls, launches = {}, {k.name: 0 for k in kernels}
+
+    def step(name, path, fn, *args, **kw):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts = path_launches(kernels, path, f"entry points: {name}")
+        for k, c in counts.items():
+            launches[k] += c
+        return out, counts
+
+    ck = root / "ckpt"
+    (out, text), counts = step(
+        "chl", ("ell_relax", "label_query"), quiet, chl.main,
+        ENTRY_ARGV + ["--ckpt-dir", str(ck), "--queries", str(SERVE_Q),
+                      "--query-mode", "qdol"])
+    idx = out["index"]
+    require(idx.plan.algo == "hybrid" and idx.report.q == 1
+            and idx.store.device.type == dev.type,
+            "entry points: launch.chl did not build the one-node "
+            "hybrid on the card")
+    log(f"entry points: launch.chl {' '.join(ENTRY_ARGV)} --ckpt-dir "
+        f"<dir> --queries {SERVE_Q} --query-mode qdol: {walls['chl']:.3f} s; "
+        f"{picked(text, 'graph', 'CHL done', 'index artifact')}; "
+        f"launches {counts}")
+    g, rank = chl.build_graph(argparse.Namespace(
+        graph="road", n=int(ENTRY_ARGV[3]), seed=int(ENTRY_ARGV[5])))
+    require(np.array_equal(g.ell_src, exact["graph"][0].ell_src),
+            "entry points: the launcher's road graph != phase 3's")
+    t0 = time.perf_counter()
+    plant = build(g, rank, BuildPlan(algo="plant"), device=dev)
+    plant_wall = time.perf_counter() - t0
+    require(lbl.to_numpy_sets(idx.table)
+            == lbl.to_numpy_sets(plant.table), "entry points: the "
+            "launcher's hybrid label sets != a card PLaNT build's")
+    rng = np.random.default_rng(1)          # the launcher's pairs
+    u = rng.integers(0, g.n, SERVE_Q)
+    v = rng.integers(0, g.n, SERVE_Q)
+    t0 = time.perf_counter()
+    src = np.unique(u)
+    D = dijkstra(_scipy_csr(g), indices=src)
+    row = np.searchsorted(src, u)
+    want = D[row, v].astype(np.float32)
+    dij_wall = time.perf_counter() - t0
+    srv = idx.serve(mode="qdol", batch_size=SERVE_Q)
+    srv.submit(u, v)
+    require(np.array_equal(srv.flush(), want), "entry points: the "
+            "launcher's qdol answers != scipy's Dijkstra")
+    log(f"entry points: the hybrid's label sets == a card PLaNT "
+        f"build's ({plant_wall:.3f} s); {SERVE_Q} pairs served qdol == "
+        f"scipy Dijkstra ({len(src)} sources, {dij_wall:.1f} s)")
+
+    (again, text), counts = step(
+        "chl --resume", (), quiet, chl.main,
+        ENTRY_ARGV + ["--ckpt-dir", str(ck), "--resume", "--save-index",
+                      str(root / "resumed")])
+    require(same_table(again["index"].table, idx.table),
+            "entry points: --resume table != the launcher's")
+    log(f"entry points: launch.chl --resume from the final cursor: "
+        f"{walls['chl --resume']:.3f} s, table == the first run's "
+        f"(torch.equal); launches {counts}")
+
+    (comp, text), counts = step(
+        "chl compressed", ("ell_relax", "label_query"), quiet, chl.main,
+        ENTRY_ARGV + ["--store", "compressed", "--codec", "u16",
+                      "--quant-exact", "--queries", "4096"])
+    require(np.array_equal(comp["index"].query(u, v), want),
+            "entry points: the compressed run's answers != Dijkstra")
+    log(f"entry points: launch.chl --store compressed --codec u16 "
+        f"--quant-exact --queries 4096: {walls['chl compressed']:.3f} s"
+        f"; {picked(text, 'memory')}; {SERVE_Q} pairs == Dijkstra; "
+        f"launches {counts}")
+
+    (shd, text), counts = step(
+        "chl sharded", ("ell_relax", "label_query"), quiet, chl.main,
+        ENTRY_ARGV + ["--store", "sharded", "--algo", "plant",
+                      "--shards", "4", "--queries", "4096"])
+    rehomed = ShardedStore.from_table(plant.table, rank, 4)
+    require(same_stores(shd["index"].store, rehomed),
+            "entry points: the sharded run's shards != the PLaNT index "
+            "re-homed")
+    log(f"entry points: launch.chl --store sharded --algo plant --shards "
+        f"4 --queries 4096: {walls['chl sharded']:.3f} s; shard_arrays "
+        f"== the PLaNT index re-homed; launches {counts}")
+    del comp, shd, again, rehomed
+
+    gr = str(root / "road.gr")
+    t0 = time.perf_counter()
+    write_dimacs(g, gr)
+    g_gr = read_dimacs(gr)
+    save_npz(g, str(root / "road.npz"))
+    g_npz = load_npz(str(root / "road.npz"))
+    io_wall = time.perf_counter() - t0
+    for other, what in ((g_gr, "read_dimacs"), (g_npz, "load_npz")):
+        require(all(np.array_equal(getattr(other, f), getattr(g, f))
+                    for f in ("ell_src", "ell_w", "ell_dst", "ell_w_out",
+                              "indptr", "indices", "weights")),
+                f"entry points: {what} arrays != the graph's")
+    (dim, text), counts = step(
+        "chl dimacs", ("ell_relax", "label_query"), quiet, chl.main,
+        ["--graph", gr, "--algo", "plant", "--batch", "32",
+         "--queries", "4096"])
+    require(np.array_equal(dim["index"].query(u, v), want),
+            "entry points: the .gr build's answers != Dijkstra")
+    log(f"entry points: write_dimacs + read_dimacs + save/load_npz "
+        f"{io_wall:.2f} s, arrays equal; launch.chl --graph road.gr "
+        f"--algo plant --batch 32 --queries 4096: {walls['chl dimacs']:.3f} s, "
+        f"{SERVE_Q} pairs == Dijkstra; launches {counts}")
+    del dim
+
+    (mut, text), counts = step(
+        "mutate_chl", ("ell_relax", "label_query"), quiet,
+        mutate_chl.main,
+        ["--index", str(ck / "index")] + ENTRY_ARGV
+        + ["--inserts", "2", "--deletes", "2", "--reweights", "4",
+           "--verify-rebuild", "--queries", "4096"])
+    require("verify-rebuild: bit-identical" in text,
+            "entry points: mutate_chl printed no bit-identity line")
+    log(f"entry points: mutate_chl --inserts 2 --deletes 2 --reweights "
+        f"4 --verify-rebuild --queries 4096: {walls['mutate_chl']:.3f} "
+        f"s; {picked(text, 'repair done', 'verify-rebuild')}; "
+        f"launches {counts}")
+    del mut
+
+    for name, mod, path in (
+            ("quickstart", quickstart, ("ell_relax", "label_query")),
+            ("dynamic_repair", dynamic_repair,
+             ("ell_relax", "label_query")),
+            ("serve_chl_queries", serve_chl_queries,
+             ("ell_relax", "label_query")),
+            ("elastic_failover", elastic_failover, ("ell_relax",))):
+        (_, text), counts = step(name, path, quiet, mod.main,
+                                 device=dev)
+        last = text.strip().splitlines()[-1]
+        log(f"entry points: examples.{name}.main(device='{dev}'): "
+            f"{walls[name]:.3f} s; last line {last!r}; launches "
+            f"{counts}")
+
+    eu, ev, _ = exact["queries"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        qs = QueryServer.build(exact["table"], mode="qlsn",
+                               batch_size=1024)
+    require(any(issubclass(w.category, DeprecationWarning)
+                and "QueryServer.build is a deprecated" in str(w.message)
+                for w in caught), "entry points: QueryServer.build "
+            "did not warn")
+
+    def shim():
+        qs.submit(eu, ev)
+        return qs.flush()
+    got, counts = step("QueryServer", ("label_query",), shim)
+    require(np.array_equal(got, exact["index"].query(eu, ev)),
+            "entry points: QueryServer answers != query")
+    log(f"entry points: QueryServer.build on phase 3's table warned; "
+        f"{len(eu)} answers == query, stats {qs.stats()['batches']} "
+        f"batches; launches {counts}")
+
+    rc, ft_out, walls["ft_smoke"] = side.ft_smoke()
+    require(rc == 0
+            and ft_out.rstrip().endswith("ft_smoke: all 6 legs passed"),
+            f"entry points: ft_smoke exited {rc}:\n"
+            + "\n".join(ft_out.strip().splitlines()[-20:]))
+    legs = [ln for ln in ft_out.splitlines() if ln.startswith("[")]
+    log(f"entry points: python -m repro_torch.launch.ft_smoke (n = 144, "
+        f"its own process, started before phase 3h): exit 0 after "
+        f"{walls['ft_smoke']:.1f} s, {len(legs)} legs, 'ft_smoke: all 6 "
+        "legs passed'")
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"entry points: phase wall {total:.1f} s; walls "
+        f"{ {k: round(w, 3) for k, w in walls.items()} }; launches "
+        f"{launches}")
+    return {"launches": launches, "walls": walls}
+
+
 def phase_distributed_road(dev, kernels, g, rank, known) -> dict:
     """The hybrid on chl_road (n = 16,777,216, width 8, batch 4, cap 8,
     hc_cap 32, compact 4096) on ROAD_NODES logical nodes of the card:
@@ -2654,8 +2952,8 @@ def phase_distributed_road(dev, kernels, g, rank, known) -> dict:
     collective ran in a PLaNT superstep and one did in the DGLL
     superstep, and that for SERVE_Q pairs (r, v), r a processed root
     (the top ranks, so the answers are exact), qlsn = qfdl = qdol, all
-    finite, and equal scipy's Dijkstra from two of the roots (``known``:
-    phase 5's Dijkstra row of the top root, and one more). Logs the
+    finite, and equal scipy's Dijkstra from the top root (``known``:
+    phase 5's Dijkstra row of it). Logs the
     common table, prologue and superstep walls, the fallback, the
     collectives' calls and bytes and a profiled window of HC-pruned
     sweeps."""
@@ -2753,9 +3051,7 @@ def phase_distributed_road(dev, kernels, g, rank, known) -> dict:
     serve_s = time.perf_counter() - t1
     t1 = time.perf_counter()
     top, d_top = known
-    other = int(roots[roots != top][0])
-    rows = {int(top): d_top.astype(np.float32),
-            other: dijkstra(_scipy_csr(g), indices=other).astype(np.float32)}
+    rows = {int(top): d_top.astype(np.float32)}
     sources = np.array(list(rows))
     checked = 0
     for r, D in rows.items():
@@ -2787,7 +3083,7 @@ def directed_graph():
                          directed=True)
     rank = degree_ranking(g)
     log(f"directed graph n={g.n} m={g.m} ELL width {g.max_deg_in}: host "
-        f"set-up {time.perf_counter() - t0:.1f} s (two from_edges)")
+        f"set-up {time.perf_counter() - t0:.1f} s (one from_edges)")
     return g, rank
 
 
@@ -2799,7 +3095,8 @@ def phase_directed_scale(dev, kernels, g, rank) -> dict:
     ``(h, v)`` and ``(v, h)`` for planted roots h, which the top roots'
     labels answer exactly, served through ``serve(mode="qlsn")`` (one
     two-table launch a flush), checked against scipy's Dijkstra from
-    two roots on G and on its transpose, and against the plain query."""
+    the top root on G and on its transpose, and against the plain
+    query."""
     import numpy as np
     import torch
     from scipy.sparse.csgraph import dijkstra
@@ -2878,7 +3175,7 @@ def phase_directed_scale(dev, kernels, g, rank) -> dict:
     A = _scipy_csr(g)
     At = A.T.tocsr()
     checked = 0
-    for r in roots[:2]:
+    for r in roots[:1]:
         fwd = dijkstra(A, indices=int(r)).astype(np.float32)     # d(r->x)
         bwd = dijkstra(At, indices=int(r)).astype(np.float32)    # d(x->r)
         sel = np.flatnonzero(u[:half] == r)
@@ -2900,7 +3197,7 @@ def phase_directed_scale(dev, kernels, g, rank) -> dict:
     log(f"directed scale serve: {SERVE_Q} queries (h, v) and (v, h) for "
         f"planted h in one flush, {flush_launches} label_query launch, "
         f"host wall {serve_s:.3f} s; == plain query; {checked} of them == "
-        f"scipy Dijkstra from 2 roots on G and its transpose "
+        f"scipy Dijkstra from the top root on G and its transpose "
         f"({oracle_s:.1f} s)")
     return {"launches": counts, "wall": wall, "sweeps": sweeps,
             "l_out": l_out, "l_in": l_in, "u": ud, "v": vd}
@@ -3310,7 +3607,16 @@ def main() -> int:
     add(phase_sharded_exactness(dev, kernels, exact, repair)["launches"])
     del repair
     add(phase_spill_compressed_exactness(dev, kernels, exact)["launches"])
-    add(phase_distributed_exactness(dev, kernels, exact)["launches"])
+    # ft_smoke (phase 3i's subprocess) and the graph set-ups of phases
+    # 5-7 (host numpy, one thread) run beside phases 3h and 3i
+    side = SideWork(dev, (road_graph, random_graph, directed_graph))
+    try:
+        add(phase_distributed_exactness(dev, kernels, exact)["launches"])
+        entry = phase_entry_points(dev, kernels, exact, side)["launches"]
+        road_setup, random_setup, directed_setup = side.graphs()
+    finally:
+        side.close()
+    add(entry)
     g, rank = exact["graph"]
     lq = {"exactness": time_query_table(
         dev, "exactness", exact["table"], *random_pairs(dev, g.n, 13))}
@@ -3344,7 +3650,7 @@ def main() -> int:
     times["minplus"] = dense["minplus"]
     torch.cuda.empty_cache()
 
-    g, rank = road_graph()
+    (g, rank), road_setup = road_setup, None
     road = phase_scale(dev, kernels, "road", g, rank, ROAD_BATCH,
                        ROAD_TREES, ROAD_CAP)
     add(road["launches"])
@@ -3375,7 +3681,7 @@ def main() -> int:
     del g, rank
     torch.cuda.empty_cache()
 
-    g, rank = random_graph()
+    (g, rank), random_setup = random_setup, None
     rnd = phase_scale(dev, kernels, "random", g, rank, RANDOM_BATCH,
                       RANDOM_TREES, RANDOM_CAP)
     add(rnd["launches"])
@@ -3390,7 +3696,7 @@ def main() -> int:
     del g, rank, rnd
     torch.cuda.empty_cache()
 
-    g, rank = directed_graph()
+    (g, rank), directed_setup = directed_setup, None
     drt = phase_directed_scale(dev, kernels, g, rank)
     add(drt["launches"])
     lq["pair_directed"] = time_query_pair(dev, "directed", drt["l_out"],
@@ -3409,6 +3715,9 @@ def main() -> int:
     # query_table on the road state is the headline; the other states
     # and the operand form ride along
     times["label_query"] = dict(lq.pop("road"), **lq)
+    # the entry-point phase's share of each kernel's launches
+    for name, t in times.items():
+        t["entry_points_launches"] = entry[name]
     headline = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # device_ms and host_us of every kernel ride along beside the
     # headline keys

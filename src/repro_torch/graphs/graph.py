@@ -140,6 +140,18 @@ def from_edges(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                  indptr=indptr, indices=d, weights=ww)
 
 
+def to_networkx(g: Graph):
+    """Oracle view (tests only)."""
+    import networkx as nx
+    G = nx.DiGraph() if g.directed else nx.Graph()
+    G.add_nodes_from(range(g.n))
+    for v in range(g.n):
+        ids, w = g.out_edges(v)
+        for u, wt in zip(ids.tolist(), w.tolist()):
+            G.add_edge(v, int(u), weight=float(wt))
+    return G
+
+
 class DeviceGraph(NamedTuple):
     """What the relaxation engine reads, resident on one device."""
     ell_src: torch.Tensor    # int32 [n, deg]

@@ -7,9 +7,10 @@
 Loads a versioned artifact (written by either package's
 ``CHLIndex.save``) onto ``--device`` (default: the card; it raises
 without CUDA) and drives the serving tier
-(:class:`repro_torch.serve.QueryService`). The port serves the qlsn
-storage mode; ``--mode qfdl``/``qdol`` raise until the distributed port
-lands. ``--store`` overrides the label residency: ``sharded`` re-homes
+(:class:`repro_torch.serve.QueryService`) in any of the three
+storage modes: ``--mode qlsn``, and the distributed ``qfdl`` and
+``qdol`` on the index's default node mesh (one node per card, one on
+the CPU). ``--store`` overrides the label residency: ``sharded`` re-homes
 the labels into hub partitions (``--shards`` picks K), ``spill``
 memory-maps the shard files so an index larger than host RAM still
 serves, ``compressed`` quantizes the labels (``--codec`` picks the

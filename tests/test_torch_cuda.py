@@ -40,7 +40,10 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   same stores on the CPU, dist and hub, for every codec, stacked and
   routed; the u8/u16/u32 code gathers and decoders on the card equal
   numpy's (u32 codes past 2^24 included); a compressed card build
-  equals the CPU's encoded shards.
+  equals the CPU's encoded shards;
+- the launchers on the card: ``launch.chl`` (the hybrid, a checkpoint a
+  superstep, its ``--resume``) saves the CPU's artifact, and
+  ``mutate_chl --verify-rebuild`` repairs on the card to the CPU's.
 """
 
 import copy
@@ -904,3 +907,51 @@ def test_query_modes_on_card_equal_qlsn(cuda_device, q):
                         batch_size=256)
         svc.submit(u, v)
         assert np.array_equal(svc.flush(), want), mode
+
+
+# ------------------------------------------------ launchers on the card
+
+def test_chl_launcher_on_card_equals_cpu(cuda_device, tmp_path):
+    """``launch.chl`` on the card (the default device) saves the CPU's
+    artifact at the reference's launcher case (the hybrid on
+    scale_free(80), batch 4, a checkpoint a superstep, 64 queries), and
+    its ``--resume`` from the final cursor saves it again."""
+    from repro_torch.ft.harness import assert_index_bit_identical
+    from repro_torch.launch import chl
+    argv = ["--graph", "scalefree", "--n", "80", "--algo", "hybrid",
+            "--batch", "4", "--queries", "64"]
+    for k in (ELL_RELAX, LABEL_QUERY):
+        k.launches = 0
+    card = chl.main(argv + ["--ckpt-dir", str(tmp_path / "card")])
+    assert ELL_RELAX.launches > 0 and LABEL_QUERY.launches > 0
+    assert card["index"].store.device.type == "cuda"
+    chl.main(argv + ["--ckpt-dir", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert_index_bit_identical(str(tmp_path / "card" / "index"),
+                               str(tmp_path / "cpu" / "index"))
+    chl.main(argv[:-2] + ["--ckpt-dir", str(tmp_path / "card"), "--resume",
+                          "--save-index", str(tmp_path / "again")])
+    assert_index_bit_identical(str(tmp_path / "again"),
+                               str(tmp_path / "cpu" / "index"))
+
+
+def test_mutate_chl_verify_rebuild_on_card(cuda_device, tmp_path, capsys):
+    """``mutate_chl --verify-rebuild`` repairs a card-built artifact on
+    the card, bit-identical to a fresh card build, and saves the CPU
+    repair's artifact."""
+    import shutil
+    from repro_torch.ft.harness import assert_index_bit_identical
+    from repro_torch.launch import chl, mutate_chl
+    graph = ["--graph", "road", "--n", "144"]
+    src = str(tmp_path / "src")
+    chl.main(graph + ["--algo", "plant", "--save-index", src])
+    shutil.copytree(src, str(tmp_path / "cpu"))
+    mut = graph + ["--inserts", "2", "--deletes", "2", "--reweights", "2",
+                   "--verify-rebuild", "--queries", "64"]
+    ELL_RELAX.launches = 0
+    out = mutate_chl.main(mut + ["--index", src])
+    assert ELL_RELAX.launches > 0
+    assert out["index"].store.device.type == "cuda"
+    assert "verify-rebuild: bit-identical" in capsys.readouterr().out
+    mutate_chl.main(mut + ["--index", str(tmp_path / "cpu"),
+                           "--device", "cpu"])
+    assert_index_bit_identical(src, str(tmp_path / "cpu"))

@@ -276,3 +276,57 @@ def test_core_shims_warn_like_the_reference(name):
     with pytest.warns(DeprecationWarning):
         again, _ = getattr(port_core, name)(g, rank, **kw)
     assert all(torch.equal(a, b) for a, b in zip(table, again))
+
+
+def test_entry_points_and_examples_are_scanned():
+    """The import scan above covers the launchers and the examples."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("graphs/io.py", "serve/query_server.py",
+                   "launch/chl.py", "launch/mutate_chl.py",
+                   "launch/ft_smoke.py", "launch/serve_chl.py",
+                   "examples/quickstart.py", "examples/dynamic_repair.py",
+                   "examples/serve_chl_queries.py",
+                   "examples/elastic_failover.py"):
+        assert f"src/repro_torch/{module}" in names
+
+
+def test_no_query_server_call_sites_outside_serve():
+    """The reference's ban (``test_store.py``) on the deprecated
+    ``QueryServer``: nothing in the package (its launchers and examples
+    included) outside ``repro_torch/serve/`` constructs one, and nothing
+    outside its own module calls ``QueryServer.build``. Like the tests,
+    ``chip_smoke.py`` drives the shim on purpose."""
+    offenders = []
+    package = [p for p in PORT_FILES if p.name != "chip_smoke.py"]
+    assert len(package) == len(PORT_FILES) - 1
+    for path in package:
+        rel = path.relative_to(ROOT).as_posix()
+        text = path.read_text()
+        if ("QueryServer.build" in text
+                and rel != "src/repro_torch/serve/query_server.py"):
+            offenders.append(f"{rel}: calls QueryServer.build")
+        if ("QueryServer(" in text
+                and not rel.startswith("src/repro_torch/serve/")):
+            offenders.append(f"{rel}: constructs deprecated QueryServer")
+    assert not offenders, "\n  ".join(offenders)
+
+
+def test_networkx_is_imported_only_by_to_networkx():
+    """networkx is a test oracle: only ``graphs.graph.to_networkx``
+    imports it, inside the function (the card's machine has none)."""
+    found = []
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        owner = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for sub in ast.walk(fn):
+                    owner.setdefault(id(sub), fn.name)
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else [node.module or ""]
+                    if isinstance(node, ast.ImportFrom) else [])
+            if any(m.split(".")[0] == "networkx" for m in mods):
+                found.append((path.relative_to(ROOT).as_posix(),
+                              owner.get(id(node))))
+    assert found == [("src/repro_torch/graphs/graph.py", "to_networkx")]
