@@ -183,9 +183,28 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    65,536 queries (h, v) and (v, h) for planted roots h (exact: every
    vertex ranked above h is planted) served in one flush, equal to the
    plain query and, for the top root, to scipy's Dijkstra on G and on
-   its transpose; the two-table form is then timed at this state.
+   its transpose; the two-table form is then timed at this state;
+8. LM serving (the LM zoo, no hand-written kernel on its path), once
+   the CHL tensors are freed: (a) ``repro_torch.launch.serve.main`` on
+   smollm-360m at full width (409,007,040 parameters, f32 weights, bf16
+   activations), B = 4, a 32-token prompt and 64 generated tokens, then
+   a 1,024-token prompt and 16: prefill seconds, ms a decode step
+   beside the byte bound (the f32 weights read once), tokens/s and peak
+   memory, tokens inside the vocabulary, logits finite; (b) the same
+   configuration in f32 with one set of weights drawn on the CPU and
+   copied to the card: prefill and 4 teacher-forced decode steps equal
+   the CPU's to rel 1e-5, with TF32 off; (c) the ten smoke twins (every
+   leaf drawn, so no zero-init gate hides a path) on the card against
+   the CPU, prefill and 3 teacher-forced decode steps in f32 (1e-5) and
+   bf16 (the reference's bounds, 1e-2 and 2e-2 for the hybrid and
+   xLSTM), and the reference's decode-vs-full-forward check on the
+   card; (d) whisper-base (a 1,500-frame encoder) and xlstm-125m at
+   full width: a 32-token prompt and 16 decode steps with finite
+   logits, decode-vs-forward within 1e-5 in f32 (the bf16 value is
+   logged beside the reference's bound); (e) the four kernels' launch
+   counts stay 0 through the phase.
 
-Launch counts are set to 0 just before each of phases 3-7 (and each
+Launch counts are set to 0 just before each of phases 3-8 (and each
 build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
 repair of 3f, the spill loads of 3g and of 5d, each build and the query
 modes of 3h, each step of 3i, the frontier and the road resume) and
@@ -3553,6 +3572,280 @@ def random_graph():
     return g, rank
 
 
+# ------------------------------------------------------ phase 8: LM serving
+
+#: phase 8, the LM zoo's serving path: LM_ARCH at full width through
+#: ``launch.serve`` (LM_SERVE, then the longer prompt LM_LONG), the card
+#: against the CPU at full width in f32 (LM_CHECK_B sequences, a prompt
+#: of LM_CHECK_PROMPT and LM_CHECK_STEPS teacher-forced decode steps),
+#: the ten smoke twins (a prompt of LM_TWIN_PROMPT, LM_TWIN_STEPS decode
+#: steps) and the LM_WIDE architectures at full width (a prompt of
+#: LM_WIDE_PROMPT, LM_WIDE_GEN decode steps)
+LM_ARCH = "smollm_360m"
+LM_SERVE = ("--batch", "4", "--prompt-len", "32", "--gen", "64")
+LM_LONG = ("--batch", "4", "--prompt-len", "1024", "--gen", "16")
+LM_CHECK_B, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 8, 4
+LM_TWIN_B, LM_TWIN_PROMPT, LM_TWIN_STEPS = 2, 12, 3
+LM_WIDE = ("whisper_base", "xlstm_125m")
+LM_WIDE_B, LM_WIDE_PROMPT, LM_WIDE_GEN = 2, 32, 16
+#: decode steps of LM_ARCH under one profiler window (B = 4, after a
+#: 32-token prompt): device kernels, busy and idle time a step
+LM_PROFILE_STEPS = 8
+#: ``max|a - b| / max(1, max|a|)``: f32 on both devices; bf16 at the
+#: reference's own bounds, looser for the hybrid and xLSTM scans
+LM_REL_F32, LM_REL_BF16, LM_REL_BF16_SCAN = 1e-5, 1e-2, 2e-2
+
+
+def lm_rel(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / max(1.0, float(a.abs().max())))
+
+
+def lm_bound(cfg) -> float:
+    import torch
+    if cfg.dtype == torch.float32:
+        return LM_REL_F32
+    return LM_REL_BF16_SCAN if cfg.family in ("hybrid", "xlstm") \
+        else LM_REL_BF16
+
+
+def f32_matmuls_are_ieee() -> bool:
+    """TF32 is off for f32 matmuls, through either API torch exposes."""
+    import torch
+    m = torch.backends.cuda.matmul
+    prec = getattr(m, "fp32_precision", "none")
+    return (torch.get_float32_matmul_precision() == "highest"
+            and prec in ("none", "ieee") and not m.allow_tf32)
+
+
+def lm_batch(cfg, rng, B, S) -> dict:
+    """Host tensors: tokens [B, S] and the family's modality
+    embeddings (normal)."""
+    import torch
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)))}
+    if cfg.family == "vision":
+        batch["image_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_audio_tokens, cfg.d_model)), dtype=torch.float32)
+    return batch
+
+
+def lm_teacher_forced(model, batch, prompt, steps) -> list:
+    """Prefill ``batch``'s first ``prompt`` tokens, then decode the
+    next ``steps`` of them; the logits of each call."""
+    dev = model.device
+    B = batch["tokens"].shape[0]
+    tokens = batch["tokens"].to(dev)
+    pre = {k: v.to(dev) for k, v in batch.items()}
+    pre["tokens"] = tokens[:, :prompt]
+    logits, state, mem = model.prefill(
+        pre, model.init_serve_state(B, prompt + steps + 4))
+    out = [logits]
+    for t in range(prompt, prompt + steps):
+        logits, state = model.decode_step(tokens[:, t:t + 1], state, mem)
+        out.append(logits)
+    return out
+
+
+def lm_decode_vs_forward(model, batch) -> float:
+    """The reference's ``test_decode_matches_parallel_forward`` on the
+    port: the last position of a full causal forward against prefill
+    on the prefix and one decode step."""
+    dev = model.device
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    S = batch["tokens"].shape[1]
+    full, _ = model(batch)
+    pre = dict(batch, tokens=batch["tokens"][:, :-1])
+    _, state, mem = model.prefill(
+        pre, model.init_serve_state(batch["tokens"].shape[0], S + 4))
+    logits, _ = model.decode_step(batch["tokens"][:, -1:], state, mem)
+    return lm_rel(full[:, -1], logits)
+
+
+def phase_lm_serving(dev, kernels) -> dict:
+    """Phase 8 (see the module docstring). Returns its wall and the
+    launch counts (all zero: the LM path calls none of the kernels)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params, randomize_params
+    t_phase = time.perf_counter()
+    reset(kernels)
+    require(f32_matmuls_are_ieee(), "lm: TF32 is on for f32 matmuls")
+
+    # (a) the main path: smollm-360m at full width through the launcher
+    spec = base.get(LM_ARCH)
+    n_params = spec.config.param_count()
+    bound_ms = 1e3 * 4 * n_params / PEAK_BYTES_PER_S
+    for argv in (LM_SERVE, LM_LONG):
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = serve.main(["--arch", LM_ARCH, *argv])
+        wall = time.perf_counter() - t0
+        toks = out["tokens"]
+        B, gen = int(argv[1]), int(argv[5])
+        require(toks.shape == (B, gen), f"lm serve: tokens {toks.shape}")
+        require(bool(((toks >= 0) & (toks < spec.config.vocab)).all()),
+                "lm serve: a token outside the vocabulary")
+        log(f"lm serve {LM_ARCH} ({n_params:,} params, f32 weights "
+            f"{4 * n_params / 1e9:.3f} GB, bf16 activations) B={B} "
+            f"prompt {argv[3]} gen {gen}: prefill {out['prefill_s']:.4f} s, "
+            f"decode {out['ms_per_step']:.3f} ms a step "
+            f"(byte bound {bound_ms:.3f} ms: the f32 weights read once), "
+            f"{out['tok_per_s']:.1f} tok/s, peak "
+            f"{(torch.cuda.max_memory_allocated(dev) - held) / 1e9:.3f} GB "
+            f"above the {held / 1e9:.3f} GB held before, call {wall:.2f} s")
+
+    # where a decode step's time goes: LM_PROFILE_STEPS steps of the
+    # same model, timed on the host clock, then under a profiler window
+    model = init_params(spec.config, seed=0, device=dev)
+    token = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    _, state, _ = model.prefill(
+        {"tokens": torch.zeros((4, 32), dtype=torch.long, device=dev)},
+        model.init_serve_state(4, 32 + 2 * LM_PROFILE_STEPS + 2))
+    box = [state]
+
+    def step():
+        box[0] = model.decode_step(token, box[0])[1]
+
+    step()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(LM_PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0) / LM_PROFILE_STEPS
+    evs = device_events(step, LM_PROFILE_STEPS)
+    if not evs:
+        evs = device_events(step, LM_PROFILE_STEPS)   # PERF.md §7
+    busy_ms = covered(evs) / 1e3 / LM_PROFILE_STEPS
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    log(f"lm {LM_ARCH} decode step profile (B=4, {LM_PROFILE_STEPS} "
+        f"steps): {len(evs) / LM_PROFILE_STEPS:.0f} device kernels a step, "
+        f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f} %); top: " + "; ".join(
+            f"{name[:60]} {us / 1e3 / LM_PROFILE_STEPS:.3f} ms"
+            for name, us in top))
+    del model, state, box
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU at full width in f32
+    cfg = dataclasses.replace(spec.config, dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    batch = lm_batch(cfg, np.random.default_rng(8), LM_CHECK_B,
+                     LM_CHECK_PROMPT + LM_CHECK_STEPS)
+    want = lm_teacher_forced(cpu, batch, LM_CHECK_PROMPT, LM_CHECK_STEPS)
+    got = lm_teacher_forced(card, batch, LM_CHECK_PROMPT, LM_CHECK_STEPS)
+    errs = [lm_rel(a, b) for a, b in zip(want, got)]
+    require(max(errs) <= LM_REL_F32, f"lm full width f32: card != CPU "
+            f"{errs}")
+    log(f"lm {LM_ARCH} full width f32, card vs CPU (TF32 off): prefill "
+        f"+ {LM_CHECK_STEPS} decode steps rel {max(errs):.3e} <= "
+        f"{LM_REL_F32:g} ({time.perf_counter() - t0:.2f} s)")
+    del cpu, card, want, got
+    torch.cuda.empty_cache()
+
+    # (c) the ten smoke twins, card against CPU, f32 and bf16; the
+    # reference's decode-vs-forward check on the card
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in base.lm_arch_ids():
+        for f32 in (True, False):
+            cfg = base.get(arch).smoke
+            if f32:
+                cfg = dataclasses.replace(cfg, dtype=torch.float32)
+            cpu = randomize_params(init_params(cfg, seed=0, device="cpu"),
+                                   0)
+            card = copy.deepcopy(cpu).to(dev)
+            batch = lm_batch(cfg, np.random.default_rng(1), LM_TWIN_B,
+                             LM_TWIN_PROMPT + LM_TWIN_STEPS)
+            err = max(lm_rel(a, b) for a, b in zip(
+                lm_teacher_forced(cpu, batch, LM_TWIN_PROMPT,
+                                  LM_TWIN_STEPS),
+                lm_teacher_forced(card, batch, LM_TWIN_PROMPT,
+                                  LM_TWIN_STEPS)))
+            require(err <= lm_bound(cfg), f"lm twin {arch} "
+                    f"{'f32' if f32 else 'bf16'}: card != CPU ({err:.3e})")
+            worst[(arch, f32)] = err
+        if cfg.moe_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=float(
+                cfg.moe_experts))
+        card = randomize_params(init_params(cfg, seed=2, device="cpu"),
+                                2).to(dev)
+        dvf = lm_decode_vs_forward(card, lm_batch(
+            cfg, np.random.default_rng(3), LM_TWIN_B, 16))
+        require(dvf < lm_bound(cfg), f"lm twin {arch}: decode != forward "
+                f"({dvf:.3e})")
+        log(f"lm twin {arch}: card vs CPU rel f32 "
+            f"{worst[(arch, True)]:.3e}, bf16 {worst[(arch, False)]:.3e}; "
+            f"decode vs forward (card, bf16) {dvf:.3e}")
+    log(f"lm twins: {len(worst)} card-vs-CPU checks "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # (d) two more families at full width on the card: served as
+    # shipped (bf16); decode-vs-forward gated in f32 (in bf16 the
+    # reference's own check at this width lands on both sides of its
+    # bound, so the bf16 number is logged beside it)
+    for arch in LM_WIDE:
+        t0 = time.perf_counter()
+        cfg = base.get(arch).config
+        batch = lm_batch(cfg, np.random.default_rng(4), LM_WIDE_B,
+                         LM_WIDE_PROMPT + 1)
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        dvf32 = lm_decode_vs_forward(init_params(f32, seed=0, device=dev),
+                                     batch)
+        require(dvf32 <= LM_REL_F32, f"lm {arch} full width f32: decode "
+                f"!= forward ({dvf32:.3e})")
+        model = init_params(cfg, seed=0, device=dev)
+        dvf = lm_decode_vs_forward(model, batch)
+        pre = {k: v.to(dev) for k, v in batch.items()}
+        pre["tokens"] = pre["tokens"][:, :LM_WIDE_PROMPT]
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        logits, state, mem = model.prefill(pre, model.init_serve_state(
+            LM_WIDE_B, LM_WIDE_PROMPT + LM_WIDE_GEN))
+        torch.cuda.synchronize(dev)
+        t_pre = time.perf_counter() - t1
+        finite = bool(torch.isfinite(logits).all())
+        t1 = time.perf_counter()
+        for _ in range(LM_WIDE_GEN):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            logits, state = model.decode_step(tok, state, mem)
+            finite = finite and bool(torch.isfinite(logits).all())
+        t_dec = time.perf_counter() - t1
+        require(finite, f"lm {arch} full width: non-finite logits")
+        log(f"lm {arch} full width ({cfg.param_count():,} params): "
+            f"prefill {LM_WIDE_PROMPT} x {LM_WIDE_B} {t_pre:.4f} s, "
+            f"decode {1e3 * t_dec / LM_WIDE_GEN:.3f} ms a step, finite; "
+            f"decode vs forward rel f32 {dvf32:.3e} <= {LM_REL_F32:g}, "
+            f"bf16 {dvf:.3e} (the reference's bound {lm_bound(cfg):g}) "
+            f"({time.perf_counter() - t0:.2f} s)")
+        del model, state, mem, logits
+        torch.cuda.empty_cache()
+
+    # (e) the LM path launches none of the four kernels
+    counts = {k.name: k.launches for k in kernels}
+    require(all(c == 0 for c in counts.values()),
+            f"lm: a CHL kernel was launched: {counts}")
+    wall = time.perf_counter() - t_phase
+    log(f"lm serving phase: kernel launches {counts} (none), wall "
+        f"{wall:.2f} s")
+    return {"launches": counts, "wall": wall}
+
+
 SOURCES = {
     "ell_relax": ("src/repro_torch/kernels/ell_relax/csrc/ell_relax.cu",
                   "src/repro/kernels/ell_relax/ell_relax.py:123"),
@@ -3703,6 +3996,9 @@ def main() -> int:
                                           drt["l_in"], drt["u"], drt["v"])
     del g, rank, drt
     torch.cuda.empty_cache()
+
+    # phase 8, the LM zoo's serving path, once the CHL tensors are freed
+    add(phase_lm_serving(dev, kernels)["launches"])
 
     # the dense-vs-windowed comparison on the road and random states
     # rides along as extra fields

@@ -8,3 +8,5 @@ CONFIG = ChlConfig(name="chl-road", n=16_777_216, max_deg=8,
 
 SMOKE = ChlConfig(name="chl-road-smoke", n=1024, max_deg=8,
                   batch=2, trees_per_node=4, cap=16, hc_cap=16)
+
+SPEC = None   # not an LM architecture: base.get() returns None for it

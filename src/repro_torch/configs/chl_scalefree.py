@@ -9,3 +9,5 @@ CONFIG = ChlConfig(name="chl-scalefree", n=4_194_304, max_deg=64,
 
 SMOKE = ChlConfig(name="chl-scalefree-smoke", n=512, max_deg=16,
                   batch=2, trees_per_node=4, cap=32, hc_cap=16)
+
+SPEC = None   # not an LM architecture: base.get() returns None for it

@@ -74,3 +74,46 @@ def spill_store(source, device: DeviceLike = None):
     from repro_torch.index.store import SpillStore
     return SpillStore([dict(a) for _, a in source.shard_arrays()],
                       device=device)
+
+
+def lm_params(cfg, params, device: DeviceLike = None):
+    """The port's `LM` for ``cfg`` on ``device`` (default: the card)
+    holding exactly the reference's weights ``params``: its nested dict
+    of host arrays (``embed/...``, ``dec/blk{j}/...``, and ``enc/...``,
+    ``enc_ln``, ``final_ln``), each stack leaf stacked ``[G, ...]`` on
+    a leading group axis. Stack leaf ``<stack>/blk{j}/<path>[g]`` is
+    the port's ``<stack>.groups.{g}.blk{j}.<path>``; every other leaf
+    keeps its path. Raises unless the two sets of leaves and their
+    shapes match."""
+    from repro_torch.models.model import abstract_params
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    ref = dict(flat(params))
+    dev = resolve_device(device)
+    model = abstract_params(cfg).to_empty(device=dev)
+    used = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            grouped = len(parts) > 2 and parts[1] == "groups"
+            path = "/".join([parts[0]] + parts[3:] if grouped else parts)
+            if path not in ref:
+                raise ValueError(f"{name}: no reference leaf {path}")
+            arr = np.asarray(ref[path])
+            if grouped:
+                arr = arr[int(parts[2])]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: reference leaf {path} has "
+                                 f"shape {arr.shape}, not {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(np.array(arr), dtype=p.dtype))
+            used.add(path)
+    if used != set(ref):
+        raise ValueError(f"reference leaves not in the port's model: "
+                         f"{sorted(set(ref) - used)}")
+    return model

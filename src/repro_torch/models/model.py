@@ -1,0 +1,180 @@
+"""Model facade: build, abstract shapes, prefill and cached decode for
+every architecture family behind one module, `LM`.
+
+Batch conventions:
+- prefill: {"tokens": int [B, S]} (+ "image_embeds" f32 [B, N_img, d]
+  for vision, "audio_embeds" f32 [B, N_aud, d] for encdec) and a
+  decode state → (last-token logits, state, cross memory);
+- decode: token int [B, 1] + the carried state (+ cross memory) →
+  (logits, state).
+
+Modality frontends are stubs: embeddings arrive precomputed.
+Parameters are f32; activations are ``cfg.dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import decoder as dec
+from repro_torch.models import layers as ly
+from repro_torch.models.common import ModelConfig, ParamFactory
+
+Tensor = torch.Tensor
+
+
+def _dec_layers(cfg: ModelConfig) -> int:
+    return (cfg.n_layers - cfg.enc_layers if cfg.family == "encdec"
+            else cfg.n_layers)
+
+
+class LM(nn.Module):
+    """``embed``, ``dec`` (and for encdec ``enc`` + ``enc_ln``),
+    ``final_ln``: the reference's top-level parameter groups."""
+
+    def __init__(self, pf: ParamFactory):
+        super().__init__()
+        cfg = pf.cfg
+        self.cfg = cfg
+        self.embed = ly.Embeddings(pf)
+        if cfg.family == "encdec":
+            self.enc = dec.Stack(pf, cfg.enc_layers)
+            self.dec = dec.Stack(pf, _dec_layers(cfg), with_cross=True)
+            self.enc_ln = ly.Norm(pf, cfg.d_model)
+        else:
+            self.dec = dec.Stack(pf, cfg.n_layers)
+        self.final_ln = ly.Norm(pf, cfg.d_model)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tok.device
+
+    # --------------------------------------------------------- forward
+
+    def embed_tokens(self, tokens: Tensor,
+                     pos_offset: Optional[int] = None) -> Tensor:
+        """Token embeddings; whisper-style configs (``rope_theta ==
+        0``) add the sinusoidal table's rows from ``pos_offset``. The
+        table has ``n_audio_tokens + S + 8`` rows and the start is
+        clamped so the slice stays inside it, so a decode position past
+        the table reuses its last row."""
+        cfg = self.cfg
+        x = self.embed.embed(tokens)
+        if cfg.rope_theta == 0:
+            S = tokens.shape[1]
+            rows = cfg.n_audio_tokens + S + 8
+            pos = ly.sinusoidal_positions(rows, cfg.d_model, x.device)
+            start = 0 if pos_offset is None else \
+                min(max(int(pos_offset), 0), rows - S)
+            x = x + pos[None, start:start + S].to(cfg.dtype)
+        return x
+
+    def encode(self, audio: Tensor) -> Tensor:
+        cfg = self.cfg
+        pos = ly.sinusoidal_positions(audio.shape[1], cfg.d_model,
+                                      audio.device)
+        x = audio.to(cfg.dtype) + pos[None].to(cfg.dtype)
+        x, _, _ = self.enc.run(x, causal=False)
+        return self.enc_ln(x)
+
+    def cross_memory(self, batch: Dict[str, Tensor]) -> Optional[Tensor]:
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return self.encode(batch["audio_embeds"])
+        if cfg.family == "vision":
+            return batch["image_embeds"].to(cfg.dtype)
+        return None
+
+    @torch.inference_mode()
+    def forward(self, batch: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
+        """The full causal forward over ``batch["tokens"]``: (logits
+        [B, S, vocab], MoE aux loss)."""
+        x = self.embed_tokens(batch["tokens"])
+        mem = self.cross_memory(batch)
+        x, aux, _ = self.dec.run(x, causal=True, cross_memory=mem)
+        x = self.final_ln(x)
+        return self.embed.unembed(x), aux
+
+    # --------------------------------------------------------- serving
+
+    def init_serve_state(self, B: int, S_max: int) -> Dict[str, Any]:
+        return init_serve_state(self.cfg, B, S_max, self.device)
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, Tensor], state: Dict[str, Any]
+                ) -> Tuple[Tensor, Dict[str, Any], Optional[Tensor]]:
+        """Consume the prompt and fill the caches (in place); returns
+        (last logits [B, vocab], state, cross memory to carry into
+        decode)."""
+        x = self.embed_tokens(batch["tokens"], pos_offset=state["pos"])
+        mem = self.cross_memory(batch)
+        x, _, state = self.dec.run(x, causal=True, cross_memory=mem,
+                                   decode_state=state)
+        x = self.final_ln(x[:, -1:])
+        return self.embed.unembed(x)[:, 0], state, mem
+
+    @torch.inference_mode()
+    def decode_step(self, token: Tensor, state: Dict[str, Any],
+                    cross_memory: Optional[Tensor] = None,
+                    ) -> Tuple[Tensor, Dict[str, Any]]:
+        """One token for every sequence in the batch. token: int
+        [B, 1]."""
+        x = self.embed_tokens(token, pos_offset=state["pos"])
+        x, _, state = self.dec.run(x, causal=True,
+                                   cross_memory=cross_memory,
+                                   decode_state=state)
+        x = self.final_ln(x)
+        return self.embed.unembed(x)[:, 0], state
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = None) -> LM:
+    """An `LM` on ``device`` (default: the card; raises without CUDA)
+    with parameters drawn from a ``torch.Generator`` on that device
+    seeded with ``seed`` (the values are not ``jax.random``'s)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return LM(ParamFactory(cfg, dev, gen))
+
+
+#: leaves drawn as 0.1·normal by `randomize_params` (the default init
+#: sets the cross gate, ``wdt``, ``alog`` and ``wif`` to zero)
+_SMALL_LEAVES = ("bias", "gate", "wdt", "alog", "wif", "dskip")
+
+
+def randomize_params(model: LM, seed: int) -> LM:
+    """Redraws every leaf in place from a CPU ``torch.Generator``
+    seeded with ``seed`` (the same values on any device): matrices
+    ``normal × 0.02``, norm scales ``1 + 0.1·normal``, biases, gates,
+    ``wdt``, ``alog``, ``wif`` and ``dskip`` ``0.1·normal``. No path
+    is then multiplied away by a zero init, which checks that compare
+    two devices need."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            z = torch.randn(p.shape, generator=gen, dtype=p.dtype)
+            z = (1 + 0.1 * z if leaf == "scale" else
+                 0.1 * z if leaf in _SMALL_LEAVES else 0.02 * z)
+            p.copy_(z)
+    return model
+
+
+def abstract_params(cfg: ModelConfig) -> LM:
+    """The model on the ``meta`` device: shapes only, nothing
+    allocated."""
+    return LM(ParamFactory(cfg, torch.device("meta")))
+
+
+def init_serve_state(cfg: ModelConfig, B: int, S_max: int,
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    """The decode state of the decoder stack (KV caches, SSM and xLSTM
+    states) on ``device`` (default: the card)."""
+    return dec.init_decode_state(cfg, _dec_layers(cfg), B, S_max,
+                                 resolve_device(device))

@@ -955,3 +955,79 @@ def test_mutate_chl_verify_rebuild_on_card(cuda_device, tmp_path, capsys):
     mutate_chl.main(mut + ["--index", str(tmp_path / "cpu"),
                            "--device", "cpu"])
     assert_index_bit_identical(src, str(tmp_path / "cpu"))
+
+
+# ------------------------------------------------------- the LM zoo
+
+#: the LM path's bounds, ``max|a − b| / max(1, max|a|)``: f32 on both
+#: devices, and bf16 (the reference's own bounds, looser for the
+#: chunked scans of the hybrid and xLSTM families)
+LM_REL_F32 = 1e-5
+LM_REL_BF16 = 1e-2
+LM_REL_BF16_SCAN = 2e-2
+
+
+def f32_matmuls_are_ieee() -> bool:
+    """TF32 is off for f32 matmuls, through either API torch exposes."""
+    m = torch.backends.cuda.matmul
+    prec = getattr(m, "fp32_precision", "none")
+    return (torch.get_float32_matmul_precision() == "highest"
+            and prec in ("none", "ieee") and not m.allow_tf32)
+
+
+def lm_rel(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / max(1.0, float(a.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["whisper_base", "qwen3_moe_235b_a22b",
+                                  "dbrx_132b", "stablelm_1_6b",
+                                  "stablelm_12b", "yi_34b", "smollm_360m",
+                                  "llama32_vision_90b", "xlstm_125m",
+                                  "jamba15_large_398b"])
+def test_lm_twin_on_card_equals_cpu(cuda_device, arch, dtype):
+    """Each smoke twin with one set of weights (every leaf drawn, so no
+    zero-init gate hides a path), drawn on the CPU and copied to the
+    card: prefill and three teacher-forced decode steps agree."""
+    import dataclasses
+    from repro_torch.configs import base
+    from repro_torch.models.model import init_params, randomize_params
+    assert f32_matmuls_are_ieee()
+    cfg = base.get(arch).smoke
+    if dtype == "f32":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    tol = (LM_REL_F32 if dtype == "f32" else LM_REL_BF16_SCAN
+           if cfg.family in ("hybrid", "xlstm") else LM_REL_BF16)
+    cpu = randomize_params(init_params(cfg, seed=0, device="cpu"), 0)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(1)
+    B, S = 2, 12
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + 3)))
+    batch = {"tokens": tokens[:, :S]}
+    if cfg.family == "vision":
+        batch["image_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_audio_tokens, cfg.d_model)), dtype=torch.float32)
+    out = []
+    for model in (cpu, card):
+        dev = model.device
+        logits, state, mem = model.prefill(
+            {k: v.to(dev) for k, v in batch.items()},
+            model.init_serve_state(B, S + 8))
+        steps = [logits]
+        for t in range(S, S + 3):
+            logits, state = model.decode_step(tokens[:, t:t + 1].to(dev),
+                                              state, mem)
+            steps.append(logits)
+        out.append((steps, state))
+    (want, ws), (got, gs) = out
+    assert gs["blk0"][next(iter(gs["blk0"]))].device.type == "cuda"
+    for a, b in zip(want, got):
+        assert lm_rel(a, b) <= tol
+    for slot, leaves in ws.items():
+        if slot != "pos":
+            for k, v in leaves.items():
+                assert lm_rel(v, gs[slot][k]) <= tol, (slot, k)

@@ -286,8 +286,40 @@ def test_entry_points_and_examples_are_scanned():
                    "launch/ft_smoke.py", "launch/serve_chl.py",
                    "examples/quickstart.py", "examples/dynamic_repair.py",
                    "examples/serve_chl_queries.py",
-                   "examples/elastic_failover.py"):
+                   "examples/elastic_failover.py",
+                   # the LM zoo's serving path
+                   "configs/base.py", "configs/smollm_360m.py",
+                   "configs/whisper_base.py", "configs/qwen3_moe_235b_a22b.py",
+                   "configs/dbrx_132b.py", "configs/stablelm_1_6b.py",
+                   "configs/stablelm_12b.py", "configs/yi_34b.py",
+                   "configs/llama32_vision_90b.py", "configs/xlstm_125m.py",
+                   "configs/jamba15_large_398b.py", "models/common.py",
+                   "models/layers.py", "models/moe.py", "models/mamba.py",
+                   "models/xlstm.py", "models/decoder.py", "models/model.py",
+                   "train/trainer.py", "launch/serve.py",
+                   "examples/serve_lm.py"):
         assert f"src/repro_torch/{module}" in names
+
+
+def test_lm_entry_points_refuse_to_run_without_cuda(no_cuda):
+    """The LM serving path defaults to the card like the CHL entry
+    points; ``device="cpu"`` runs it, and launches no kernel."""
+    from repro_torch.configs import base
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, init_serve_state
+    cfg = base.get("smollm_360m").smoke
+    argv = ["--smoke", "--batch", "1", "--prompt-len", "4", "--gen", "2"]
+    for call in (lambda: init_params(cfg), lambda: serve.main(argv),
+                 lambda: serve_lm.main(),
+                 lambda: init_serve_state(cfg, 1, 4),
+                 lambda: interop.lm_params(cfg, {})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    kernels = all_kernels()
+    before = [k.launches for k in kernels]
+    assert serve.main(argv + ["--device", "cpu"])["tokens"].shape == (1, 2)
+    assert [k.launches for k in kernels] == before == [0] * len(kernels)
 
 
 def test_no_query_server_call_sites_outside_serve():
