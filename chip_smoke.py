@@ -87,8 +87,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 3h. distributed exactness: on phase 3's graph, ``build(g, rank)`` with
    the default plan (the hybrid: eta = 16, Ψ_th from the mesh size) on
    the card's one-node mesh; the hybrid (eta = 16, Ψ_th below 1, so it
-   switches to DGLL after its first PLaNT superstep, chl_common's
-   compact budget), dgll and plant-dist on 8 logical nodes of the card
+   switches to DGLL after its first PLaNT superstep, a compact budget
+   of 2048 labels a tree, which two of its three DGLL supersteps
+   overflow, so they complete by the dense broadcast), dgll and
+   plant-dist on 8 logical nodes of the card
    (``NodeMesh.logical(8, "cuda")``); each merged table equals phase 3's
    PLaNT table as label sets, no PLaNT superstep calls a collective and
    every DGLL superstep calls at least one; the hybrid's 65,536 pairs
@@ -97,7 +99,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    superstep 2 and a heartbeat monitor of patience 1 declares it lost,
    re-plants its tail on the survivors and lands the same label sets;
    the 8-node hybrid on the card equals the CPU's (partitions, merged
-   table, records) on grid_road(16, 16);
+   table, records) on grid_road(16, 16) under a compact budget of 32
+   labels a tree, where one DGLL superstep overflows the budget and
+   completes by the dense broadcast (``dgll-dense-fallback``) and the
+   next fits it, with collective calls and label sets equal to a PLaNT
+   build's;
 3i. entry points: ``python -m repro_torch.launch.ft_smoke`` (the
    six-leg kill matrix at its default n = 144, nine child processes on
    the card) in its own process, started before phase 3h and waited for
@@ -159,12 +165,12 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 5e. distributed road: the hybrid on chl_road's configuration (batch 4,
    cap 8, hc_cap 32, compact 4096) over phase 5's graph on 2 logical
    nodes: eta = 2 common trees (the table on the card, then the
-   prologue), one HC-pruned PLaNT superstep of 4 trees a node and one
-   DGLL superstep of 3 (the queues cut to 8 roots a node), whose emissions
-   outgrow the compact budget, so it completes by the dense broadcast;
-   the node steps sweep through the windowed kernel only; no collective
-   in a PLaNT superstep, at least one in the DGLL superstep; 65,536
-   pairs from the 16 processed roots (the top ranks: exact) answer
+   prologue) and one HC-pruned PLaNT superstep of 4 trees a node (the
+   queues cut to 5 roots a node: the DGLL superstep of 3 that followed
+   is cut for time, ~34 s; DGLL, its collectives and the dense fallback
+   stay driven at n = 4096 in phase 3h); the node steps sweep through
+   the windowed kernel only; no collective in a PLaNT superstep;
+   65,536 pairs from the 10 processed roots (the top ranks: exact) answer
    qlsn == qfdl == qdol, all finite, and equal scipy's Dijkstra from
    the top root; then a profiler window over 16 HC-pruned sweeps;
 6. random scale: random_connected(4,194,304, 4,194,304 extra edges),
@@ -202,9 +208,28 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    full width: a 32-token prompt and 16 decode steps with finite
    logits, decode-vs-forward within 1e-5 in f32 (the bf16 value is
    logged beside the reference's bound); (e) the four kernels' launch
-   counts stay 0 through the phase.
+   counts stay 0 through the phase;
+9. LM training (no hand-written kernel on its path), after phase 8:
+   (a) ``repro_torch.launch.train.main`` on smollm-360m at full width
+   (f32 weights and AdamW state, bf16 activations, remat ``dots``), 16
+   steps of 8 x 512 tokens with a checkpoint every 8 (the reference's
+   format, ~4.9 GB a step): the loss falls; the run resumed from its
+   step-8 checkpoint repeats steps 8-15 within rtol 1e-5 (logged:
+   bitwise or not); (d) at that shape, the peak bytes of one step with
+   remat off, then ms a step, tokens/s and the peak bytes with remat on
+   over 4 steps, and one step under a profiler window (device kernels,
+   busy and idle time);
+   (b) the card against the CPU for one f32 train step at full width
+   with the depth cut to 2 layers (TF32 off): loss rel 1e-5, each
+   gradient leaf's ``|g_card - g_cpu| / |g_cpu|`` 1e-4, the updated
+   params' largest difference logged; (c) the ten smoke twins (every
+   leaf drawn), two train steps each on the card against the CPU: in
+   f32 the bounds of (b), in bf16 the losses within the reference's
+   bounds (1e-2; 2e-2 for the hybrid and xLSTM; a router near-tie in
+   bf16 moves a whole expert's gradient, so bf16 gradients are not
+   compared); (e) the four kernels' launch counts stay 0.
 
-Launch counts are set to 0 just before each of phases 3-8 (and each
+Launch counts are set to 0 just before each of phases 3-9 (and each
 build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
 repair of 3f, the spill loads of 3g and of 5d, each build and the query
 modes of 3h, each step of 3i, the frontier and the road resume) and
@@ -296,13 +321,18 @@ SYNTH_N, SYNTH_L, SYNTH_POOL = 262_144, 256, 1024
 # a Ψ threshold below 1 (every label is an explored vertex, so Ψ >= 1)
 # switches the hybrid to DGLL after its first PLaNT superstep. The card
 # against the CPU on DIST_SMALL_SIDE^2 vertices (the CPU's run of the
-# 8-node hybrid takes about a minute at n = 4096, 4 s at 24 x 24)
+# 8-node hybrid takes about a minute at n = 4096, 4 s at 24 x 24), with
+# a compact budget of DIST_SMALL_COMPACT labels a tree. At each size
+# the budget (DIST_COMPACT at n = 4096) is one that some DGLL
+# supersteps overflow, completing by the dense broadcast, and another
+# fits (chl_common's 4096 is n there: every superstep would fit)
 DIST_Q, DIST_PSI_LOW, DIST_SMALL_SIDE = 8, 0.5, 16
-# the road phase: 2 nodes, one common tree a node (eta = 2), one
-# HC-pruned PLaNT superstep of a batch of 4 trees a node, then one DGLL
-# superstep of 3 (8 trees a node in all, chl_road's trees_per_node, so
-# that its cap of 8 labels a vertex a node holds)
-ROAD_NODES, ROAD_ETA, ROAD_DIST_COLS = 2, 2, 8
+DIST_COMPACT, DIST_SMALL_COMPACT = 2048, 32
+# the road phase: 2 nodes, one common tree a node (eta = 2), then one
+# HC-pruned PLaNT superstep of a batch of 4 trees a node (5 of
+# chl_road's 8 trees_per_node: the DGLL superstep of the other 3 is cut
+# for time)
+ROAD_NODES, ROAD_ETA, ROAD_DIST_COLS = 2, 2, 5
 
 
 _T0 = time.perf_counter()
@@ -2532,10 +2562,12 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
 
     ``build(g, rank)`` with the default plan (the hybrid: eta = 16, auto
     Ψ) on the card's one-node mesh; then the hybrid (eta = 16, Ψ_th
-    below 1, chl_common's compact budget), dgll and plant-dist on an
+    below 1, a compact budget of DIST_COMPACT), dgll and plant-dist on an
     8-node logical mesh on the card, each merged table equal to phase
     3's PLaNT table as label sets, no collective call in a PLaNT
-    superstep and at least one in a DGLL superstep; qlsn, qfdl and qdol
+    superstep and at least one in a DGLL superstep, the hybrid's DGLL
+    supersteps both over the budget (completed by the dense broadcast)
+    and within it; qlsn, qfdl and qdol
     of the 8-node hybrid answer SERVE_Q Dijkstra pairs exactly;
     plant-dist with node 1 silent after superstep 2 and a heartbeat
     monitor of patience 1 re-plants node 1's tail on the survivors and
@@ -2544,7 +2576,6 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
     grid_road(DIST_SMALL_SIDE, DIST_SMALL_SIDE)."""
     import numpy as np
     import torch
-    from repro_torch.configs.chl_common import ChlConfig
     from repro_torch.core.dgll import merge_partitions, stack_partitions
     from repro_torch.core.hybrid import run_distributed
     from repro_torch.engine import run_build
@@ -2558,7 +2589,6 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
     g, rank = exact["graph"]
     want = lbl.to_numpy_sets(exact["table"])
     u, v, dists = dijkstra_pairs(g, 29)
-    compact = ChlConfig.__dataclass_fields__["compact"].default
     walls, launches = {}, {k.name: 0 for k in kernels}
 
     def add(counts):
@@ -2586,7 +2616,7 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
 
     mesh = NodeMesh.logical(DIST_Q, dev)
     plans = {"hybrid": dict(eta=16, psi_threshold=DIST_PSI_LOW,
-                            compact=compact),
+                            compact=DIST_COMPACT),
              "dgll": {}, "plant-dist": {}}
     hybrid = None
     for algo, kw in plans.items():
@@ -2610,6 +2640,12 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
             f"comm_label_slots {res.counters['comm_label_slots']}; label "
             "sets == phase 3's")
         if algo == "hybrid":
+            modes = [r.mode for r in res.records]
+            require("dgll-dense-fallback" in modes and "dgll" in modes,
+                    f"distributed exactness: the hybrid's supersteps "
+                    f"{modes} under a compact budget of {DIST_COMPACT} "
+                    "lack one completed by the dense fallback or one "
+                    "within the budget")
             hybrid = res, merged
     res, merged = hybrid
     total = int(merged.count.sum())
@@ -2650,10 +2686,23 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
 
     gs = grid_road(DIST_SMALL_SIDE, DIST_SMALL_SIDE, seed=7)
     rs = betweenness_ranking(gs, samples=12)
-    plan = BuildPlan(eta=16, psi_th=DIST_PSI_LOW, compact=compact)
+    plan = BuildPlan(eta=16, psi_th=DIST_PSI_LOW,
+                     compact=DIST_SMALL_COMPACT)
     reset(kernels)
+    coll.reset_counts()
     card = build(gs, rs, plan, mesh=NodeMesh.logical(DIST_Q, dev))
+    small_calls = coll.total_calls()
     add(path_launches(kernels, ("ell_relax",), "small hybrid"))
+    small_modes = [r.mode for r in card.report.supersteps]
+    require("dgll-dense-fallback" in small_modes and "dgll" in small_modes
+            and small_calls > 0, f"distributed: the small hybrid's "
+            f"supersteps {small_modes} ({small_calls} collective calls) "
+            f"lack a DGLL superstep within the compact budget of "
+            f"{DIST_SMALL_COMPACT} or one completed by the dense fallback")
+    reset(kernels)
+    plant_small = build(gs, rs, BuildPlan(algo="plant"), device=dev)
+    require(same_sets(card.table, lbl.to_numpy_sets(plant_small.table)),
+            "distributed: the small hybrid's label sets != PLaNT's")
     t0 = time.perf_counter()
     cpu = build(gs, rs, plan, mesh=NodeMesh.logical(DIST_Q, "cpu"))
     cpu_wall = time.perf_counter() - t0
@@ -2667,9 +2716,10 @@ def phase_distributed_exactness(dev, kernels, exact) -> dict:
     log(f"distributed exactness: the 8-node hybrid on grid_road("
         f"{DIST_SMALL_SIDE}, {DIST_SMALL_SIDE}) on the card == the CPU's "
         f"(partitions {tuple(stack_partitions(card.partitioned).hubs.shape)}"
-        f", merged table, records {[r.mode for r in card.report.supersteps]};"
-        f" CPU {cpu_wall:.2f} s, card {card.report.wall_s:.2f} s); "
-        f"launches {launches}")
+        f", merged table, records {small_modes} under a compact budget of "
+        f"{DIST_SMALL_COMPACT}, {small_calls} collective calls; label sets "
+        f"== PLaNT's; CPU {cpu_wall:.2f} s, card {card.report.wall_s:.2f} "
+        f"s); launches {launches}")
     return {"launches": launches, "walls": walls}
 
 
@@ -2965,11 +3015,11 @@ def phase_distributed_road(dev, kernels, g, rank, known) -> dict:
     """The hybrid on chl_road (n = 16,777,216, width 8, batch 4, cap 8,
     hc_cap 32, compact 4096) on ROAD_NODES logical nodes of the card:
     eta = ROAD_ETA common trees (the prologue), one HC-pruned PLaNT
-    superstep of a batch of 4 trees a node and one DGLL superstep of 3
-    (the queues cut to ROAD_DIST_COLS columns a node). Checks that the
-    node steps swept through the windowed kernel only, that no
-    collective ran in a PLaNT superstep and one did in the DGLL
-    superstep, and that for SERVE_Q pairs (r, v), r a processed root
+    superstep of a batch of 4 trees a node (the queues cut to
+    ROAD_DIST_COLS columns a node, so no DGLL superstep follows). Checks
+    that the node steps swept through the windowed kernel only, that no
+    collective ran in a PLaNT superstep, and that for SERVE_Q pairs
+    (r, v), r a processed root
     (the top ranks, so the answers are exact), qlsn = qfdl = qdol, all
     finite, and equal scipy's Dijkstra from the top root (``known``:
     phase 5's Dijkstra row of it). Logs the
@@ -3023,8 +3073,7 @@ def phase_distributed_road(dev, kernels, g, rank, known) -> dict:
     require(launches["ell_relax"] == 0, "distributed road: a node step "
             "took the dense sweep")
     modes = [r.mode for r in res.records]
-    require(modes[:2] == ["plant-hc", "plant"] and len(modes) == 3
-            and modes[2].startswith("dgll"),
+    require(modes == ["plant-hc", "plant"],
             f"distributed road: supersteps {modes}")
     calls = superstep_calls(res.records, res.extras["collective_calls"],
                             "distributed road")
@@ -3846,6 +3895,276 @@ def phase_lm_serving(dev, kernels) -> dict:
     return {"launches": counts, "wall": wall}
 
 
+# ----------------------------------------------------- phase 9: LM training
+
+#: phase 9, the LM zoo's training path: LM_ARCH at full width through
+#: ``launch.train`` (LM_TRAIN_STEPS steps of LM_TRAIN_B x LM_TRAIN_S
+#: tokens, a checkpoint every LM_TRAIN_EVERY steps), then resumed from
+#: the step-LM_TRAIN_EVERY checkpoint; LM_TRAIN_TIMED steps timed at
+#: that shape; the card against the CPU for one f32 train step at full
+#: width cut to LM_CHECK_LAYERS layers (LM_CHECK_TRAIN_B x
+#: LM_CHECK_TRAIN_S tokens); the ten twins' LM_TWIN_TRAIN_STEPS steps
+#: (LM_TWIN_TRAIN_B x LM_TWIN_TRAIN_S tokens)
+LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_EVERY = 16, 8, 512, 8
+LM_TRAIN_TIMED = 4
+LM_CHECK_LAYERS, LM_CHECK_TRAIN_B, LM_CHECK_TRAIN_S = 2, 2, 32
+LM_TWIN_TRAIN_B, LM_TWIN_TRAIN_S, LM_TWIN_TRAIN_STEPS = 2, 16, 2
+#: a gradient leaf, card against CPU in f32: ``‖g_card − g_cpu‖ /
+#: ‖g_cpu‖``; a resumed run's losses against the uninterrupted run's
+#: (the reference's bound in ``tests/test_substrate.py``)
+LM_GRAD_REL, LM_RESUME_RTOL = 1e-4, 1e-5
+
+
+def lm_train_batch(cfg, rng, B, S) -> dict:
+    """Host tensors: `lm_batch`'s tokens split into inputs and next-token
+    labels [B, S], the first two labels masked (-1)."""
+    batch = lm_batch(cfg, rng, B, S + 1)
+    tokens = batch.pop("tokens")
+    batch["tokens"] = tokens[:, :-1].contiguous()
+    batch["labels"] = tokens[:, 1:].clone()
+    batch["labels"][0, :2] = -1
+    return batch
+
+
+def grad_rel(a, b) -> float:
+    """``‖b − a‖ / ‖a‖`` on the host (``‖b‖`` when ``a`` is zero)."""
+    import torch
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    den = float(torch.linalg.vector_norm(a))
+    num = float(torch.linalg.vector_norm(b - a))
+    return num / den if den else float(torch.linalg.vector_norm(b))
+
+
+def lm_card_vs_cpu(cfg, cpu, dev, batch, steps, grads=True):
+    """One set of weights (``cpu``, copied to the card): with ``grads``
+    the gradients at the start, then ``steps`` train steps on each
+    device. Returns (the worst gradient leaf's relative norm, or None
+    without ``grads``; the losses' worst relative difference, the first
+    step's loss included; the updated params' largest difference over
+    each leaf's largest magnitude)."""
+    import copy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import (TrainState, loss_and_grads,
+                                   make_train_step)
+    card = copy.deepcopy(cpu).to(dev)
+    worst_grad = None
+    if grads:
+        _, _, g_c = loss_and_grads(cpu, batch)
+        _, _, g_g = loss_and_grads(card, {k: v.to(dev)
+                                          for k, v in batch.items()})
+        worst_grad = max(grad_rel(g_c[k], g_g[k]) for k in g_c)
+        del g_c, g_g
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = make_train_step(cfg, ocfg)
+    states = [TrainState(m, adamw.init(ocfg, dict(m.named_parameters())))
+              for m in (cpu, card)]
+    worst_loss = 0.0
+    for _ in range(steps):
+        ms = []
+        for i, st in enumerate(states):
+            states[i], m = step(st, {k: v.to(st.params.device)
+                                     for k, v in batch.items()})
+            ms.append(m["loss"])
+        worst_loss = max(worst_loss, lm_rel(*ms))
+    worst_param = max(
+        float((a.detach() - b.detach().cpu()).abs().max()
+              / a.detach().abs().max().clamp(min=1e-30))
+        for (_, a), (_, b) in zip(states[0].params.named_parameters(),
+                                  states[1].params.named_parameters()))
+    return worst_grad, worst_loss, worst_param
+
+
+def phase_lm_training(dev, kernels) -> dict:
+    """Phase 9 (see the module docstring). Returns its wall and the
+    launch counts (all zero: the LM path calls none of the kernels)."""
+    import dataclasses
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import base
+    from repro_torch.data import DataConfig, DataState, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params, randomize_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    t_phase = time.perf_counter()
+    reset(kernels)
+    require(f32_matmuls_are_ieee(), "lm train: TF32 is on for f32 matmuls")
+
+    # (a) the main path: LM_ARCH at full width through the launcher,
+    # then resumed from its first checkpoint
+    cfg = base.get(LM_ARCH).config
+    ckpt = ROOT / "build" / "chip_smoke_lm_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS),
+            "--batch", str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S),
+            "--ckpt-every", str(LM_TRAIN_EVERY), "--ckpt-dir", str(ckpt),
+            "--log-every", str(LM_TRAIN_EVERY)]
+    t0 = time.perf_counter()
+    losses = train.main(argv)["losses"]
+    wall = time.perf_counter() - t0
+    require(len(losses) == LM_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses),
+            f"lm train: losses {losses}")
+    require(losses[-1] < losses[0], f"lm train: the loss did not fall "
+            f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    steps = CheckpointManager(str(ckpt)).all_steps()
+    require(steps == [LM_TRAIN_EVERY, LM_TRAIN_STEPS],
+            f"lm train: checkpoint steps {steps}")
+    step_bytes = sum(f.stat().st_size for f in
+                     (ckpt / f"step_{LM_TRAIN_EVERY:010d}").iterdir())
+    shutil.rmtree(ckpt / f"step_{LM_TRAIN_STEPS:010d}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = train.main(argv + ["--resume"])
+    wall_resume = time.perf_counter() - t0
+    again = out["losses"]
+    want = losses[LM_TRAIN_EVERY:]
+    require(len(again) == len(want), f"lm train resume: {len(again)} "
+            f"steps, not {len(want)}")
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(again, want))
+    require(resume_rel <= LM_RESUME_RTOL, f"lm train resume: losses "
+            f"{again} != {want}")
+    log(f"lm train {LM_ARCH} full width ({cfg.param_count():,} params, f32 "
+        f"weights and AdamW state, bf16 activations, remat "
+        f"'{cfg.remat_policy}') B={LM_TRAIN_B} S={LM_TRAIN_S}: "
+        f"{LM_TRAIN_STEPS} steps in {wall:.2f} s with checkpoints at "
+        f"{LM_TRAIN_EVERY} and {LM_TRAIN_STEPS} ({step_bytes:,} B a "
+        f"step), loss {losses[0]:.4f} -> {losses[-1]:.4f}; resumed from "
+        f"step {LM_TRAIN_EVERY} in {wall_resume:.2f} s: steps "
+        f"{LM_TRAIN_EVERY}-{LM_TRAIN_STEPS - 1} rel {resume_rel:.3e} <= "
+        f"{LM_RESUME_RTOL:g} "
+        f"({'bitwise equal' if again == want else 'not bitwise'})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # (d) the step at (a)'s shape: ms a step, tokens/s, peak bytes with
+    # remat on and off, and one profiled step
+    state = out["state"]
+    del out
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=LM_TRAIN_STEPS)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
+                                  global_batch=LM_TRAIN_B))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch(DataState(step=LM_TRAIN_STEPS))[0].items()}
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        *state.params.parameters(), *state.opt.mu.values(),
+        *state.opt.nu.values()))
+    box = [state]
+    del state
+    peaks = {}
+
+    def peak_above(steps, fn):
+        # the largest allocation above what is held before the steps
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            box[0] = fn(box[0], batch)[0]
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        return torch.cuda.max_memory_allocated(dev) - held, held, wall
+
+    peaks[False], _, _ = peak_above(1, make_train_step(cfg, ocfg,
+                                                       remat=False))
+    step_fn = make_train_step(cfg, ocfg)
+
+    def one():
+        box[0] = step_fn(box[0], batch)[0]
+
+    # the remat-on peak is read over the timed steps
+    peaks[True], held, wall = peak_above(LM_TRAIN_TIMED, step_fn)
+    step_ms = 1e3 * wall / LM_TRAIN_TIMED
+    tps = LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3)
+    evs = device_events(one, 1)
+    if not evs:
+        evs = device_events(one, 1)   # PERF.md §7
+    busy_ms = covered(evs) / 1e3
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    flops = 6 * cfg.param_count() * LM_TRAIN_B * LM_TRAIN_S
+    log(f"lm train {LM_ARCH} step B={LM_TRAIN_B} S={LM_TRAIN_S}: "
+        f"{step_ms:.1f} ms a step ({LM_TRAIN_TIMED} steps, remat on), "
+        f"{tps:,.0f} tokens/s ({flops / 1e12:.2f} TFLOP a step at "
+        f"6 x params x tokens: {flops / step_ms / 1e9:.1f} TFLOP/s); peak "
+        f"{peaks[True] / 1e9:.3f} GB remat on, {peaks[False] / 1e9:.3f} GB "
+        f"off, above the {held / 1e9:.3f} GB held before a step (the "
+        f"training state's {state_bytes / 1e9:.3f} GB among it)")
+    log(f"lm train {LM_ARCH} step profile: {len(evs)} device kernels a "
+        f"step, device busy {busy_ms:.1f} ms of {step_ms:.1f} ms (idle "
+        f"{100 * max(0.0, 1 - busy_ms / step_ms):.1f} %); top: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
+    del box, batch
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU: one f32 train step at full width,
+    # depth cut to LM_CHECK_LAYERS layers
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                               dtype=torch.float32)
+    cpu = init_params(cfg2, seed=0, device="cpu")
+    grad, loss, param = lm_card_vs_cpu(
+        cfg2, cpu, dev, lm_train_batch(cfg2, np.random.default_rng(9),
+                                       LM_CHECK_TRAIN_B, LM_CHECK_TRAIN_S), 1)
+    require(loss <= LM_REL_F32 and grad <= LM_GRAD_REL,
+            f"lm train full width f32: card != CPU (loss {loss:.3e}, "
+            f"grad {grad:.3e})")
+    log(f"lm train {LM_ARCH} full width, {LM_CHECK_LAYERS} layers, f32, "
+        f"card vs CPU (TF32 off), B={LM_CHECK_TRAIN_B} "
+        f"S={LM_CHECK_TRAIN_S}: loss rel {loss:.3e} <= {LM_REL_F32:g}, "
+        f"worst gradient leaf {grad:.3e} <= {LM_GRAD_REL:g}; updated "
+        f"params' largest difference {param:.3e} of a leaf's largest "
+        f"magnitude ({time.perf_counter() - t0:.2f} s)")
+    del cpu
+    torch.cuda.empty_cache()
+
+    # (c) the ten smoke twins: two train steps, card against CPU (the
+    # CPU's side on one thread: at these widths the thread pool costs
+    # more than it saves)
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for arch in base.lm_arch_ids():
+        row = []
+        for f32 in (True, False):
+            tcfg = base.get(arch).smoke
+            if f32:
+                tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
+            cpu = randomize_params(init_params(tcfg, seed=0, device="cpu"),
+                                   0)
+            grad, loss, param = lm_card_vs_cpu(
+                tcfg, cpu, dev, lm_train_batch(
+                    tcfg, np.random.default_rng(1), LM_TWIN_TRAIN_B,
+                    LM_TWIN_TRAIN_S), LM_TWIN_TRAIN_STEPS, grads=f32)
+            ok = loss <= lm_bound(tcfg) and (not f32 or grad <= LM_GRAD_REL)
+            require(ok, f"lm train twin {arch} {'f32' if f32 else 'bf16'}:"
+                    f" card != CPU (loss {loss:.3e}, grad {grad})")
+            row.append(f"{'f32' if f32 else 'bf16'} loss {loss:.3e}"
+                       + (f" grad {grad:.3e}" if f32 else "")
+                       + f" params {param:.3e}")
+        log(f"lm train twin {arch}, card vs CPU over "
+            f"{LM_TWIN_TRAIN_STEPS} steps: " + "; ".join(row))
+    torch.set_num_threads(threads)
+    log(f"lm train twins: 20 card-vs-CPU runs "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # (e) the LM path launches none of the four kernels
+    counts = {k.name: k.launches for k in kernels}
+    require(all(c == 0 for c in counts.values()),
+            f"lm train: a CHL kernel was launched: {counts}")
+    wall = time.perf_counter() - t_phase
+    log(f"lm training phase: kernel launches {counts} (none), wall "
+        f"{wall:.2f} s")
+    return {"launches": counts, "wall": wall}
+
+
 SOURCES = {
     "ell_relax": ("src/repro_torch/kernels/ell_relax/csrc/ell_relax.cu",
                   "src/repro/kernels/ell_relax/ell_relax.py:123"),
@@ -3997,8 +4316,10 @@ def main() -> int:
     del g, rank, drt
     torch.cuda.empty_cache()
 
-    # phase 8, the LM zoo's serving path, once the CHL tensors are freed
+    # phases 8 and 9, the LM zoo's serving and training paths, once the
+    # CHL tensors are freed
     add(phase_lm_serving(dev, kernels)["launches"])
+    add(phase_lm_training(dev, kernels)["launches"])
 
     # the dense-vs-windowed comparison on the road and random states
     # rides along as extra fields

@@ -8,17 +8,20 @@ the newest complete step). ``data_state`` (the caller's cursor) travels
 with the state, so restarts are exactly-once over the schedule.
 
 The on-disk format is the reference package's: a state is a nested
-dict whose leaves are tensors or arrays; each leaf is stored under the
-key the reference derives with
-``jax.tree_util.keystr`` (dict keys sorted, ``"['sink']['labels_hubs']"``),
-in the same order, so either package resumes from the other's steps.
+dict or NamedTuple (an LM training state in the reference's layout,
+`repro_torch.train.state_tree`) whose leaves are tensors or arrays;
+each leaf is stored under the key the reference derives with
+``jax.tree_util.keystr`` (dict keys sorted, ``"['sink']['labels_hubs']"``;
+NamedTuple fields in order, ``".opt.mu['embed']['tok']"``), in the same
+order, so either package resumes from the other's steps.
 
 - Tensors are copied to host numpy arrays in :meth:`CheckpointManager.save`,
   before the writer thread starts: the thread never touches a device
   tensor, and a tensor the caller updates in place after ``save``
   returns cannot tear the step being written.
 - :meth:`CheckpointManager.restore` puts each array back on the device
-  and in the dtype of the matching leaf of the caller's template.
+  and in the dtype of the matching leaf of the caller's template (a
+  template leaf on the ``meta`` device gives a host tensor).
 - A **torn or corrupt step** (truncated or bit-flipped ``arrays.npz``,
   unparseable manifest) is detected: restores and peeks with
   ``step=None`` fall back to the newest intact step (each skip warns),
@@ -60,16 +63,24 @@ class CorruptCheckpointError(RuntimeError):
         self.reason = reason
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``(key, leaf)`` pairs of a state of nested dicts, keyed and
-    ordered as ``jax.tree_util.keystr`` over ``tree_flatten_with_path``
-    does: dict keys sorted and spelled ``[repr(key)]``; ``None`` holds
-    no leaf."""
+    """``(key, leaf)`` pairs of a state of nested dicts and NamedTuples,
+    keyed and ordered as ``jax.tree_util.keystr`` over
+    ``tree_flatten_with_path`` does: dict keys sorted and spelled
+    ``[repr(key)]``, NamedTuple fields in their order and spelled
+    ``.field``; ``None`` holds no leaf."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in flatten(tree[k], f"{prefix}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [kv for f in tree._fields
+                for kv in flatten(getattr(tree, f), f"{prefix}.{f}")]
     return [(prefix, tree)]
 
 
@@ -79,6 +90,9 @@ def _unflatten(tree: Any, leaves) -> Any:
         return None
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten(getattr(tree, f), leaves)
+                            for f in tree._fields))
     return next(leaves)
 
 
@@ -97,10 +111,11 @@ def _host_copy(v) -> np.ndarray:
 
 def _like(a: np.ndarray, tmpl):
     """``a`` in the dtype of template leaf ``tmpl``, on its device when
-    it is a tensor."""
+    it is a tensor (on the host when that device is ``meta``)."""
     if isinstance(tmpl, torch.Tensor):
         t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device=tmpl.device, dtype=tmpl.dtype)
+        dev = "cpu" if tmpl.device.type == "meta" else tmpl.device
+        return t.to(device=dev, dtype=tmpl.dtype)
     if hasattr(tmpl, "dtype") and a.dtype != tmpl.dtype:
         return a.astype(tmpl.dtype)
     return a

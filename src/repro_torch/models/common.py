@@ -18,11 +18,15 @@ device nothing is drawn or allocated, which is how `param_count` and
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                  create_selective_checkpoint_contexts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,3 +145,52 @@ class ParamFactory:
             arr = torch.randn(shape, generator=self.generator, **kw)
             arr.mul_(scale)
         return nn.Parameter(arr)
+
+
+#: the products a ``"dots"`` remat keeps, outside `einsum_batched`:
+#: linear maps and ``matmul``s of a stack by a matrix reach the
+#: dispatcher as ``mm``/``addmm``, einsums as ``bmm`` (of batch 1 when
+#: they have no batch dims)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+#: set while `einsum_batched` runs
+_BATCH_DIMS = contextvars.ContextVar("repro_torch_batch_dims",
+                                     default=False)
+
+
+class _BatchDims:
+    def __enter__(self):
+        self.token = _BATCH_DIMS.set(True)
+
+    def __exit__(self, *exc):
+        _BATCH_DIMS.reset(self.token)
+
+
+def einsum_batched(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of a product with batch dims (attention's scores
+    and P.V, the MoE's dispatch, experts and combine, the scans' chunk
+    products). A ``"dots"`` remat recomputes it at any batch extent: by
+    its op alone it could not tell it from a product without batch dims,
+    which also reaches the dispatcher as a ``bmm`` of batch 1."""
+    with _BatchDims():
+        return torch.einsum(equation, *operands)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    keep = op in _DOTS and not _BATCH_DIMS.get()
+    return (CheckpointPolicy.MUST_SAVE if keep
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn, policy: str, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its internals are
+    recomputed in the backward pass, except, when ``policy == "dots"``,
+    the outputs of the products without batch dims (every matrix
+    product outside `einsum_batched`), as the reference's
+    ``dots_with_no_batch_dims_saveable`` keeps them; ``"nothing"`` keeps
+    none. The values are ``fn``'s own."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)

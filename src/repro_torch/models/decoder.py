@@ -30,7 +30,8 @@ from torch import nn
 from repro_torch.models import layers as ly
 from repro_torch.models import mamba as mb
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import ModelConfig, ParamFactory
+from repro_torch.models.common import (ModelConfig, ParamFactory,
+                                       remat_call)
 from repro_torch.models.moe import MoE
 
 Tensor = torch.Tensor
@@ -117,47 +118,101 @@ class Stack(nn.Module):
     def run(self, x: Tensor, *, causal: bool = True,
             cross_memory: Optional[Tensor] = None,
             decode_state: Optional[Dict[str, Any]] = None,
+            remat: bool = False,
             ) -> Tuple[Tensor, Tensor, Optional[Dict[str, Any]]]:
-        """Returns (hidden, MoE aux loss, new decode state)."""
-        cfg = self.cfg
-        use_rope = cfg.rope_theta > 0
+        """Returns (hidden, MoE aux loss, new decode state). The aux
+        loss is summed a group, then over the groups, as the
+        reference's scan sums it. ``remat`` (training only: ignored
+        with a decode state or without autograd) recomputes in the
+        backward pass what ``cfg.remat_policy`` does not keep:
+        ``"dots"`` keeps each group's matrix products, ``"nothing"``
+        keeps only the group's input, ``"sublayer"`` is ``"dots"`` with
+        each sub-layer checkpointed inside the group (keeping nothing),
+        so a group's backward holds one sub-layer's internals at a
+        time. No value changes."""
         S_in = x.shape[1]
         pos0 = decode_state["pos"] if decode_state is not None else None
-        aux_total = torch.zeros((), device=x.device)
+        policy = (self.cfg.remat_policy
+                  if remat and decode_state is None
+                  and torch.is_grad_enabled() else None)
+        auxs = []
         for g, group in enumerate(self.groups):
-            for name, blk in group.items():
-                st_in = (None if decode_state is None else
-                         {k: t[g] for k, t in decode_state[name].items()})
-                mixer = getattr(blk, blk.mixer_name)
-                h = blk.ln1(x)
-                if blk.kind in ("attn", "cross"):
-                    src = cross_memory if blk.kind == "cross" else None
-                    cache = None if st_in is None else dict(st_in,
-                                                           pos=pos0)
-                    # the cache's K/V are written in place
-                    h, _ = mixer(h, kv_src=src, causal=causal,
-                                 use_rope=use_rope, cache=cache)
-                else:
-                    h, st = mixer(h, state=st_in)
-                    if st_in is not None:
-                        for k, t in st.items():
-                            st_in[k].copy_(t)
-                x = x + h
-                if self.with_cross:
-                    h = blk.lnx(x)
-                    h, _ = blk.xattn(h, kv_src=cross_memory, causal=False,
-                                     use_rope=False)
-                    x = x + h
-                if blk.ffn == "moe":
-                    h, aux = blk.moe(blk.ln2(x))
-                    aux_total = aux_total + aux
-                    x = x + h
-                elif blk.ffn == "mlp":
-                    x = x + blk.mlp(blk.ln2(x))
+            st = (None if decode_state is None else
+                  dict({name: {k: t[g] for k, t in
+                               decode_state[name].items()}
+                        for name in group}, pos=pos0))
+            if policy is None:
+                x, aux = self._group(group, x, st, causal, cross_memory,
+                                     False)
+            else:
+                x, aux = remat_call(
+                    self._group, "nothing" if policy == "nothing"
+                    else "dots", group, x, st, causal, cross_memory,
+                    policy == "sublayer")
+            auxs.append(aux)
         new_state = None
         if decode_state is not None:
             new_state = dict(decode_state, pos=pos0 + S_in)
-        return x, aux_total, new_state
+        return x, torch.sum(torch.stack(auxs)), new_state
+
+    def _group(self, group: nn.ModuleDict, x: Tensor,
+               states: Optional[Dict[str, Any]],
+               causal: bool, cross_memory: Optional[Tensor],
+               sublayer: bool) -> Tuple[Tensor, Tensor]:
+        """One group's P slots; a slot's decode state (``states``, with
+        the stack's ``"pos"``) is written in place. ``sublayer``
+        checkpoints each sub-layer, keeping nothing."""
+        cfg = self.cfg
+        use_rope = cfg.rope_theta > 0
+
+        def call(fn, *args):
+            # every operand passes as an argument: a recompute in the
+            # backward pass must not read this loop's later variables
+            return (remat_call(fn, "nothing", *args) if sublayer
+                    else fn(*args))
+
+        aux_total = torch.zeros((), device=x.device)
+        for name, blk in group.items():
+            st_in = None if states is None else states[name]
+            mixer = getattr(blk, blk.mixer_name)
+            h = blk.ln1(x)
+            if blk.kind in ("attn", "cross"):
+                src = cross_memory if blk.kind == "cross" else None
+                if st_in is None:
+                    h = call(_attn_out, mixer, h, src, causal, use_rope)
+                else:
+                    # the cache's K/V are written in place
+                    h, _ = mixer(h, kv_src=src, causal=causal,
+                                 use_rope=use_rope,
+                                 cache=dict(st_in, pos=states["pos"]))
+            elif st_in is None:
+                h = call(_mixer_out, mixer, h)
+            else:
+                h, st = mixer(h, state=st_in)
+                for k, t in st.items():
+                    st_in[k].copy_(t)
+            x = x + h
+            if self.with_cross:
+                h = blk.lnx(x)
+                h = call(_attn_out, blk.xattn, h, cross_memory, False,
+                         False)
+                x = x + h
+            if blk.ffn == "moe":
+                h, aux = call(blk.moe, blk.ln2(x))
+                aux_total = aux_total + aux
+                x = x + h
+            elif blk.ffn == "mlp":
+                x = x + call(blk.mlp, blk.ln2(x))
+        return x, aux_total
+
+
+def _attn_out(attn: ly.Attention, h: Tensor, src: Optional[Tensor],
+              causal: bool, use_rope: bool) -> Tensor:
+    return attn(h, kv_src=src, causal=causal, use_rope=use_rope)[0]
+
+
+def _mixer_out(mixer: nn.Module, h: Tensor) -> Tensor:
+    return mixer(h)[0]
 
 
 def init_decode_state(cfg: ModelConfig, n_layers: int, B: int,

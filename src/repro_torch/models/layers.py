@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import ModelConfig, ParamFactory
+from repro_torch.models.common import (ModelConfig, ParamFactory,
+                                       einsum_batched)
 
 Tensor = torch.Tensor
 
@@ -59,10 +60,13 @@ class Norm(nn.Module):
 def _inv_freqs(half: int, theta: float, device) -> Tensor:
     """``theta ** (-arange(half) / half)`` in f32, computed on the CPU
     so every device rotates by the same frequencies, and copied to
-    ``device`` once (a copy on every call would wait for the card)."""
-    ar = torch.arange(0, half, dtype=torch.float32)
-    return torch.pow(torch.tensor(theta, dtype=torch.float32),
-                     -ar / half).to(device)
+    ``device`` once (a copy on every call would wait for the card).
+    Made outside inference mode even when serving asks first, so that a
+    later training step of the same process may use it."""
+    with torch.inference_mode(False):
+        ar = torch.arange(0, half, dtype=torch.float32)
+        return torch.pow(torch.tensor(theta, dtype=torch.float32),
+                         -ar / half).to(device)
 
 
 def _f32_sqrt(n: int) -> float:
@@ -141,7 +145,7 @@ def _chunked_attention(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
         vc = v[:, idx * C:(idx + 1) * C]
         validc = kv_valid[idx * C:(idx + 1) * C]
         kv_pos = idx * C + torch.arange(C, device=q.device)
-        s = torch.einsum("bskgh,btkh->bskgt", qg, kc).float() * scale
+        s = einsum_batched("bskgh,btkh->bskgt", qg, kc).float() * scale
         mask = (q_pos[:, :, None] >= kv_pos[None, None, :]) \
             & validc[None, None, :]
         s = torch.where(mask[:, :, None, None, :], s, -torch.inf)
@@ -149,7 +153,7 @@ def _chunked_attention(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         ls = ls * corr + torch.sum(p, dim=-1)
-        pv = torch.einsum("bskgt,btkh->bskgh", p.to(cfg.dtype),
+        pv = einsum_batched("bskgt,btkh->bskgh", p.to(cfg.dtype),
                           vc).float()
         acc = acc * corr[..., None] + pv
         m = m_new
@@ -246,21 +250,21 @@ class Attention(nn.Module):
             if grouped:
                 # grouped einsum: no KV head replication
                 qg = q.reshape(B, S, KV, H // KV, hd)
-                scores = torch.einsum("bskgh,btkh->bkgst", qg, k)
+                scores = einsum_batched("bskgh,btkh->bkgst", qg, k)
             else:
                 # jnp.repeat(k, g, axis=2): each KV head repeated in place
                 if H != KV:
                     k = k.repeat_interleave(H // KV, dim=2)
                     v = v.repeat_interleave(H // KV, dim=2)
-                scores = torch.einsum("bshk,bthk->bhst", q, k)
+                scores = einsum_batched("bshk,bthk->bhst", q, k)
             scores = _mask_scores(scores.float() / _f32_sqrt(hd), cache,
                                   kv_src, causal, pos_q, S, T, grouped)
             w = torch.softmax(scores, dim=-1).to(cfg.dtype)
             if grouped:
-                out = torch.einsum("bkgst,btkh->bskgh", w, v).reshape(
+                out = einsum_batched("bkgst,btkh->bskgh", w, v).reshape(
                     B, S, H, hd)
             else:
-                out = torch.einsum("bhst,bthk->bshk", w, v)
+                out = einsum_batched("bhst,bthk->bshk", w, v)
         out = torch.einsum("bshk,hkd->bsd", out.float(), self.wo)
         if hasattr(self, "gate"):
             out = out * torch.tanh(self.gate).to(cfg.dtype).float()

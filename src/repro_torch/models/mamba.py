@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import ModelConfig, ParamFactory
+from repro_torch.models.common import (ModelConfig, ParamFactory,
+                                       einsum_batched, remat_call)
 
 Tensor = torch.Tensor
 
@@ -61,16 +62,26 @@ def _ssm_scan_chunked(cfg: ModelConfig, dt: Tensor, bmat: Tensor,
     ys = []
     for i in range(nc):
         sl = slice(i * ch, (i + 1) * ch)
-        dtf = dt[:, sl].float()
-        ac = torch.exp(dtf[..., None] * amat[None, None])  # [B,ch,di,ds]
-        bxc = (dtf * xc[:, sl].float())[..., None] \
-            * bmat[:, sl].float()[:, :, None, :]
-        aa, bb = _scan_chunk(ac, bxc)
-        hs = aa * h[:, None] + bb                         # [B,ch,di,ds]
-        ys.append(torch.einsum("bcdz,bcz->bcd", hs, c[:, sl].float()))
-        h = hs[:, -1]
+        args = (h, dt[:, sl], bmat[:, sl], c[:, sl], xc[:, sl], amat)
+        # under autograd each chunk is rematerialised in the backward
+        # pass (the reference's checkpoint saving nothing): the
+        # per-chunk residuals drop to the [B, di, ds] carry
+        h, y = (remat_call(_ssm_chunk, "nothing", *args)
+                if torch.is_grad_enabled() else _ssm_chunk(*args))
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y, h
+
+
+def _ssm_chunk(h: Tensor, dtc: Tensor, bc: Tensor, cc: Tensor,
+               xcc: Tensor, amat: Tensor) -> Tuple[Tensor, Tensor]:
+    """One chunk from the carry ``h``: (h at its end, y [B, ch, di])."""
+    dtf = dtc.float()
+    ac = torch.exp(dtf[..., None] * amat[None, None])     # [B,ch,di,ds]
+    bxc = (dtf * xcc.float())[..., None] * bc.float()[:, :, None, :]
+    aa, bb = _scan_chunk(ac, bxc)
+    hs = aa * h[:, None] + bb                             # [B,ch,di,ds]
+    return hs[:, -1], einsum_batched("bcdz,bcz->bcd", hs, cc.float())
 
 
 class Mamba(nn.Module):

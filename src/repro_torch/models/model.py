@@ -1,7 +1,9 @@
-"""Model facade: build, abstract shapes, prefill and cached decode for
-every architecture family behind one module, `LM`.
+"""Model facade: build, abstract shapes, the training loss, prefill and
+cached decode for every architecture family behind one module, `LM`.
 
 Batch conventions:
+- train: {"tokens": int [B, S], "labels": int [B, S]} (+ the modality
+  embeddings below); a label below 0 is masked out of the loss;
 - prefill: {"tokens": int [B, S]} (+ "image_embeds" f32 [B, N_img, d]
   for vision, "audio_embeds" f32 [B, N_aud, d] for encdec) and a
   decode state → (last-token logits, state, cross memory);
@@ -22,7 +24,8 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decoder as dec
 from repro_torch.models import layers as ly
-from repro_torch.models.common import ModelConfig, ParamFactory
+from repro_torch.models.common import (ModelConfig, ParamFactory,
+                                       remat_call)
 
 Tensor = torch.Tensor
 
@@ -73,18 +76,19 @@ class LM(nn.Module):
             x = x + pos[None, start:start + S].to(cfg.dtype)
         return x
 
-    def encode(self, audio: Tensor) -> Tensor:
+    def encode(self, audio: Tensor, remat: bool = False) -> Tensor:
         cfg = self.cfg
         pos = ly.sinusoidal_positions(audio.shape[1], cfg.d_model,
                                       audio.device)
         x = audio.to(cfg.dtype) + pos[None].to(cfg.dtype)
-        x, _, _ = self.enc.run(x, causal=False)
+        x, _, _ = self.enc.run(x, causal=False, remat=remat)
         return self.enc_ln(x)
 
-    def cross_memory(self, batch: Dict[str, Tensor]) -> Optional[Tensor]:
+    def cross_memory(self, batch: Dict[str, Tensor],
+                     remat: bool = False) -> Optional[Tensor]:
         cfg = self.cfg
         if cfg.family == "encdec":
-            return self.encode(batch["audio_embeds"])
+            return self.encode(batch["audio_embeds"], remat)
         if cfg.family == "vision":
             return batch["image_embeds"].to(cfg.dtype)
         return None
@@ -129,6 +133,58 @@ class LM(nn.Module):
                                    decode_state=state)
         x = self.final_ln(x)
         return self.embed.unembed(x)[:, 0], state
+
+
+# ---------------------------------------------------------------- loss
+
+def loss_fn(model: LM, batch: Dict[str, Tensor], *, remat: bool = True,
+            aux_weight: float = 0.01) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token cross entropy plus ``aux_weight`` × the MoE balance
+    loss, differentiable (not under inference mode, unlike serving).
+    Returns ``(loss, {"nll", "aux", "tokens"})``, ``tokens`` the number
+    of unmasked labels (f32). ``remat`` recomputes the stack's groups
+    in the backward pass (`Stack.run`); the values do not change."""
+    cfg = model.cfg
+    labels = batch["labels"]
+    x = model.embed_tokens(batch["tokens"])
+    mem = model.cross_memory(batch, remat)
+    x, aux, _ = model.dec.run(x, causal=True, cross_memory=mem,
+                              remat=remat)
+    x = model.final_ln(x)
+    nll = _cross_entropy(model, x, labels)
+    loss = nll + aux_weight * aux
+    mask = (labels >= 0).float()
+    return loss, {"nll": nll, "aux": aux, "tokens": torch.sum(mask)}
+
+
+def _ce_terms(model: LM, x: Tensor, labels: Tensor) -> Tensor:
+    """Σ masked (logsumexp − target logit) over a [B, S', d] slice; the
+    logits in f32, the target taken at ``max(label, 0)``."""
+    logits = model.embed.unembed(x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - ll) * mask)
+
+
+def _cross_entropy(model: LM, x: Tensor, labels: Tensor) -> Tensor:
+    """Mean NLL over the unmasked labels (at least 1). With
+    ``cfg.loss_chunk = C > 0`` dividing S, and S > C, the sequence is
+    taken C positions at a time, each chunk's logits recomputed in the
+    backward pass (`torch.utils.checkpoint`), so the [B, S, V] logits
+    never exist at once."""
+    S = x.shape[1]
+    mask_total = torch.clamp(torch.sum((labels >= 0).float()), min=1.0)
+    C = model.cfg.loss_chunk
+    if C <= 0 or S % C != 0 or S <= C:
+        return _ce_terms(model, x, labels) / mask_total
+    tot = torch.zeros((), device=x.device)
+    for i in range(S // C):
+        args = (model, x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C])
+        tot = tot + (remat_call(_ce_terms, "nothing", *args)
+                     if torch.is_grad_enabled() else _ce_terms(*args))
+    return tot / mask_total
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import ModelConfig, ParamFactory
+from repro_torch.models.common import (ModelConfig, ParamFactory,
+                                       einsum_batched)
 
 Tensor = torch.Tensor
 
@@ -106,12 +107,12 @@ class MoE(nn.Module):
             combine = combine + d_k * gate_v[..., k, None, None].to(dt)
             used = used + torch.sum(oh, dim=1, dtype=torch.int32)
 
-        xin = torch.einsum("gsec,gsd->egcd", dispatch, xt)  # [E, G, C, d]
-        h = torch.einsum("egcd,edif->egcif", xin, self.wi.to(dt))
+        xin = einsum_batched("gsec,gsd->egcd", dispatch, xt)  # [E, G, C, d]
+        h = einsum_batched("egcd,edif->egcif", xin, self.wi.to(dt))
         if cfg.act == "swiglu":
             h = F.silu(h[..., 0, :]) * h[..., 1, :]
         else:
             h = F.gelu(h[..., 0, :], approximate="tanh")
-        xout = torch.einsum("egcf,efd->egcd", h, self.wo.to(dt))
-        out = torch.einsum("gsec,egcd->gsd", combine, xout)
+        xout = einsum_batched("egcf,efd->egcd", h, self.wo.to(dt))
+        out = einsum_batched("gsec,egcd->gsd", combine, xout)
         return out.reshape(B, S, d), aux

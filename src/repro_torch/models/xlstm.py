@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import ModelConfig, ParamFactory
+from repro_torch.models.common import (ModelConfig, ParamFactory,
+                                       einsum_batched, remat_call)
 from repro_torch.models.layers import _f32_sqrt
 
 Tensor = torch.Tensor
@@ -44,22 +45,22 @@ def _mlstm_chunk(C, n, m, qc, kc, vc, lic, lfc):
     logw = torch.where(tri[None, :, :, None], Dmat + lic[:, None, :, :],
                        -torch.inf)
     w = torch.exp(logw - m_new[:, None, None, :])        # [B,ch,ch,H]
-    scores = torch.einsum("bthk,bwhk->btwh", qc, kc).float()
+    scores = einsum_batched("bthk,bwhk->btwh", qc, kc).float()
     qf, kf, vf = qc.float(), kc.float(), vc.float()
-    intra = torch.einsum("btwh,btwh,bwhk->bthk", scores, w, vf)
+    intra = einsum_batched("btwh,btwh,bwhk->bthk", scores, w, vf)
     inter_scale = torch.exp(Fc + m[:, None] - m_new[:, None])
-    inter = torch.einsum("bthk,bhkl,bth->bthl", qf, C, inter_scale)
+    inter = einsum_batched("bthk,bhkl,bth->bthl", qf, C, inter_scale)
     # normaliser |q·n| with the same intra/inter decomposition
-    nz_intra = torch.einsum("btwh,btwh->bth", scores, w)
-    nz_inter = torch.einsum("bthk,bhk,bth->bth", qf, n, inter_scale)
+    nz_intra = einsum_batched("btwh,btwh->bth", scores, w)
+    nz_inter = einsum_batched("bthk,bhk,bth->bth", qf, n, inter_scale)
     den = torch.abs(nz_intra + nz_inter)
     y = (intra + inter) / torch.clamp(den, min=1.0)[..., None]
     # carry: C' = exp(F_T) C + Σ_τ exp(F_T − F_τ + i_τ) k v^T
     decay_all = torch.exp(Fc[:, -1:, :] - Fc + lic - m_new[:, None])
     keep = torch.exp(Fc[:, -1] + m - m_new)
-    C_new = keep[..., None, None] * C + torch.einsum(
+    C_new = keep[..., None, None] * C + einsum_batched(
         "bthk,bth,bthl->bhkl", kf, decay_all, vf)
-    n_new = keep[..., None] * n + torch.einsum("bthk,bth->bhk", kf,
+    n_new = keep[..., None] * n + einsum_batched("bthk,bth->bhk", kf,
                                                decay_all)
     return C_new, n_new, m_new, y
 
@@ -112,8 +113,13 @@ class MLSTM(nn.Module):
         ys = []
         for i in range(nc):
             sl = slice(i * ch, (i + 1) * ch)
-            C, n, m, y = _mlstm_chunk(C, n, m, q[:, sl], k[:, sl],
-                                      v[:, sl], logi[:, sl], logf[:, sl])
+            args = (C, n, m, q[:, sl], k[:, sl], v[:, sl], logi[:, sl],
+                    logf[:, sl])
+            # under autograd each chunk is rematerialised in the
+            # backward pass (the reference's checkpoint saving nothing)
+            C, n, m, y = (remat_call(_mlstm_chunk, "nothing", *args)
+                          if torch.is_grad_enabled()
+                          else _mlstm_chunk(*args))
             ys.append(y)
         y = torch.cat(ys, dim=1)[:, :S].to(dt)
         og = torch.sigmoid(torch.einsum("bsd,dhk->bshk", x,
@@ -164,7 +170,7 @@ class SLSTM(nn.Module):
         hs = []
         for t in range(S):
             zt = zx[:, t]
-            rec = torch.einsum("bhk,hkgl->bghl", h, wr)
+            rec = einsum_batched("bhk,hkgl->bghl", h, wr)
             z, i, f, o = (zt[:, g] + rec[:, g] for g in range(4))
             ig = torch.exp(torch.clamp(i, max=10.0))   # stabilised exp gate
             fg = torch.sigmoid(f + 1.0)

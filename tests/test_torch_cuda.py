@@ -43,7 +43,11 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   equals the CPU's encoded shards;
 - the launchers on the card: ``launch.chl`` (the hybrid, a checkpoint a
   superstep, its ``--resume``) saves the CPU's artifact, and
-  ``mutate_chl --verify-rebuild`` repairs on the card to the CPU's.
+  ``mutate_chl --verify-rebuild`` repairs on the card to the CPU's;
+- the LM zoo (no hand-written kernel): each smoke twin's prefill and
+  decode, and its f32 train step (gradients, two steps' losses and
+  params), on the card equal the CPU's; AdamW on the card equals the
+  CPU's; ``launch.train`` on the card resumes exactly once.
 """
 
 import copy
@@ -1031,3 +1035,130 @@ def test_lm_twin_on_card_equals_cpu(cuda_device, arch, dtype):
         if slot != "pos":
             for k, v in leaves.items():
                 assert lm_rel(v, gs[slot][k]) <= tol, (slot, k)
+
+
+# ------------------------------------------------- the LM zoo's training
+
+#: a gradient leaf, card against CPU in f32: ``‖g_card − g_cpu‖ /
+#: ‖g_cpu‖``
+LM_GRAD_REL = 1e-4
+
+
+def lm_train_state(model):
+    from repro_torch.optim import AdamWConfig, init
+    from repro_torch.train import TrainState
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    return ocfg, TrainState(model, init(ocfg, dict(model.named_parameters())))
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "qwen3_moe_235b_a22b",
+                                  "dbrx_132b", "stablelm_1_6b",
+                                  "stablelm_12b", "yi_34b", "smollm_360m",
+                                  "llama32_vision_90b", "xlstm_125m",
+                                  "jamba15_large_398b"])
+def test_lm_train_step_on_card_equals_cpu(cuda_device, arch):
+    """Each smoke twin in f32, one set of weights (every leaf drawn) on
+    both devices: the gradients at the start (each leaf within
+    `LM_GRAD_REL`), then two train steps' losses (`LM_REL_F32`) and the
+    updated params."""
+    import dataclasses
+    from repro_torch.configs import base
+    from repro_torch.models.model import (init_params, loss_fn,
+                                          randomize_params)
+    from repro_torch.train import make_train_step
+    assert f32_matmuls_are_ieee()
+    cfg = dataclasses.replace(base.get(arch).smoke, dtype=torch.float32)
+    cpu = randomize_params(init_params(cfg, seed=0, device="cpu"), 0)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(1)
+    B, S = 4, 16
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + 1)))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:].clone()}
+    batch["labels"][0, :2] = -1
+    if cfg.family == "vision":
+        batch["image_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_audio_tokens, cfg.d_model)), dtype=torch.float32)
+    grads, losses, states = [], [], []
+    for model in (cpu, card):
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        names, params = zip(*model.named_parameters())
+        loss, _ = loss_fn(model, b)
+        grads.append(dict(zip(names, torch.autograd.grad(
+            loss, params, allow_unused=True, materialize_grads=True))))
+        ocfg, st = lm_train_state(model)
+        step = make_train_step(cfg, ocfg)
+        out = []
+        for _ in range(2):
+            st, m = step(st, b)
+            out.append(m["loss"])
+        losses.append(out)
+        states.append(st)
+    for k, g in grads[0].items():
+        den = torch.linalg.vector_norm(g)
+        err = torch.linalg.vector_norm(grads[1][k].cpu() - g)
+        assert float(err) <= LM_GRAD_REL * max(float(den), 1e-30), k
+    for a, b in zip(*losses):
+        assert lm_rel(a, b) <= LM_REL_F32
+    assert int(states[1].opt.step) == 2
+    assert states[1].opt.mu["embed.tok"].device.type == "cuda"
+    for (k, a), (_, b) in zip(states[0].params.named_parameters(),
+                              states[1].params.named_parameters()):
+        err = torch.linalg.vector_norm(b.detach().cpu() - a.detach())
+        assert float(err) <= LM_GRAD_REL * float(
+            torch.linalg.vector_norm(a.detach())), k
+
+
+@pytest.mark.parametrize("clip", [1e9, 0.1])
+def test_adamw_apply_on_card_equals_cpu(cuda_device, clip):
+    """AdamW on the card against the CPU over three steps: the schedule,
+    the global norm and every leaf within a few ulps (the card's
+    ``pow``/``cos`` and sums may round differently)."""
+    from repro_torch.optim import AdamWConfig, apply, init
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                      clip_norm=clip)
+    rng = np.random.default_rng(4)
+    shapes = {"a": (64, 33), "b": (7,), "c": (3, 5, 11)}
+    params = {k: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+              for k, s in shapes.items()}
+    runs = []
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev) for k, v in params.items()}
+        st = init(cfg, p)
+        g_rng = np.random.default_rng(5)
+        for _ in range(3):
+            g = {k: torch.as_tensor(g_rng.standard_normal(s),
+                                    dtype=torch.float32, device=dev)
+                 for k, s in shapes.items()}
+            p, st, m = apply(cfg, st, p, g)
+        runs.append((p, st, m))
+    (p0, s0, m0), (p1, s1, m1) = runs
+    assert s1.step.device.type == "cuda" and int(s1.step) == 3
+    for k in ("lr", "grad_norm"):
+        assert abs(float(m0[k]) - float(m1[k])) <= 4e-7 * abs(float(m0[k]))
+    for a_tree, b_tree in ((p0, p1), (s0.mu, s1.mu), (s0.nu, s1.nu)):
+        for k, a in a_tree.items():
+            b = b_tree[k].cpu()
+            assert float((a - b).abs().max()) <= 1e-5 * float(
+                a.abs().max()), k
+
+
+def test_launch_train_on_card_resumes_exactly_once(cuda_device, tmp_path,
+                                                   capsys):
+    """``launch.train`` on the card (the default device): a run resumed
+    from its step-3 checkpoint repeats steps 3-5 within rtol 1e-5."""
+    import shutil
+    from repro_torch.launch import train
+    d = tmp_path / "run"
+    argv = ["--arch", "smollm_360m", "--smoke", "--steps", "6", "--batch",
+            "4", "--seq", "32", "--ckpt-every", "3", "--ckpt-dir", str(d)]
+    first = train.main(argv)
+    assert first["state"].opt.step.device.type == "cuda"
+    losses = first["losses"]
+    assert losses[-1] < losses[0]
+    shutil.rmtree(d / f"step_{6:010d}")
+    again = train.main(argv + ["--resume"])["losses"]
+    assert "[resume] step 3" in capsys.readouterr().out
+    np.testing.assert_allclose(again, losses[3:], rtol=1e-5)

@@ -362,3 +362,56 @@ def test_networkx_is_imported_only_by_to_networkx():
                 found.append((path.relative_to(ROOT).as_posix(),
                               owner.get(id(node))))
     assert found == [("src/repro_torch/graphs/graph.py", "to_networkx")]
+
+
+def test_lm_training_modules_are_scanned():
+    """The import scan above covers the LM training slice."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("optim/__init__.py", "optim/adamw.py",
+                   "data/__init__.py", "data/pipeline.py",
+                   "train/__init__.py", "train/trainer.py",
+                   "launch/train.py", "examples/train_lm.py", "interop.py",
+                   "models/model.py", "checkpoint/manager.py"):
+        assert f"src/repro_torch/{module}" in names
+
+
+def test_lm_training_entry_points_refuse_to_run_without_cuda(no_cuda,
+                                                             tmp_path):
+    """``launch.train``, ``examples.train_lm``, ``init_train_state`` and
+    ``interop.train_state`` default to the card and raise without CUDA;
+    ``device="cpu"`` trains, and launches no kernel."""
+    from repro_torch.configs import base
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, state_tree
+    cfg = base.get("smollm_360m").smoke
+    ocfg = AdamWConfig()
+    argv = ["--smoke", "--steps", "2", "--batch", "2", "--seq", "8"]
+    cpu_state = init_train_state(cfg, ocfg, device="cpu")
+    for call in (lambda: train.main(argv), lambda: train_lm.main(),
+                 lambda: init_train_state(cfg, ocfg),
+                 lambda: interop.train_state(cfg, ocfg,
+                                             state_tree(cpu_state))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    kernels = all_kernels()
+    before = [k.launches for k in kernels]
+    out = train.main(argv + ["--device", "cpu", "--ckpt-dir",
+                             str(tmp_path / "ckpt")])
+    assert len(out["losses"]) == 2
+    assert [k.launches for k in kernels] == before == [0] * len(kernels)
+
+
+def test_lm_training_path_has_no_compile_and_no_fallback():
+    """No ``torch.compile`` anywhere in the port, and no ``try`` in the
+    training path's modules (a step that fails raises)."""
+    for path in PORT_FILES:
+        assert "torch.compile" not in path.read_text(), path
+    pkg = ROOT / "src" / "repro_torch"
+    for module in ("optim/adamw.py", "train/trainer.py", "launch/train.py",
+                   "models/model.py", "models/decoder.py",
+                   "examples/train_lm.py"):
+        tree = ast.parse((pkg / module).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
+            module
