@@ -227,9 +227,23 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    f32 the bounds of (b), in bf16 the losses within the reference's
    bounds (1e-2; 2e-2 for the hybrid and xLSTM; a router near-tie in
    bf16 moves a whole expert's gradient, so bf16 gradients are not
-   compared); (e) the four kernels' launch counts stay 0.
+   compared); (e) the four kernels' launch counts stay 0;
+10. the dry-run and sharding path (no hand-written kernel in this
+   process), after phase 9: three children of ``python -m
+   repro_torch.launch.dryrun`` started together on the production
+   16 x 16 mesh of a fake 512-rank world, traced on fake ``cuda``
+   tensors: smollm-360m x train_4k under FSDP at full width, its depth
+   cut to 4 layers (``--n-layers``), and chl_road x plant and
+   chl_road x dgll (closed forms at full size, checked by a real
+   superstep on 8 logical nodes of the card). Each record is ``ok``;
+   the LM cell's rank-0 argument bytes equal the count from the
+   parameter, optimizer and batch specs, it makes at least one
+   all-gather and a reduce-scatter or all-reduce and names its
+   bottleneck; PLaNT is collective-free and DGLL is not. Each record is
+   printed on a line of its own (``dryrun record {...}``) before the
+   last lines; the phase takes at most 60 s or fails.
 
-Launch counts are set to 0 just before each of phases 3-9 (and each
+Launch counts are set to 0 just before each of phases 3-10 (and each
 build of 3b, each resume of 3c, the repair of 3d, the resume of 3e, the
 repair of 3f, the spill loads of 3g and of 5d, each build and the query
 modes of 3h, each step of 3i, the frontier and the road resume) and
@@ -4165,6 +4179,107 @@ def phase_lm_training(dev, kernels) -> dict:
     return {"launches": counts, "wall": wall}
 
 
+#: phase 10's dry-run cells, each a child ``python -m
+#: repro_torch.launch.dryrun`` on the production 16 x 16 mesh of a fake
+#: 512-rank world, all three started together with one CPU thread each:
+#: smollm-360m's train_4k cell under FSDP at full width with the depth
+#: cut to DRYRUN_LM_LAYERS (on an H100 80GB HBM3 machine its child's
+#: startup alone took ~15 s and the trace ~0.45 s a layer: 32 layers
+#: 30.5 s alone, 8 layers 30.2 s beside the CHL children), and
+#: chl_road's PLaNT and DGLL supersteps
+DRYRUN_LM_LAYERS = 4
+DRYRUN_CELLS = (("smollm_360m", "train_4k",
+                 ("--rules", "fsdp", "--n-layers", str(DRYRUN_LM_LAYERS))),
+                ("chl_road", "plant", ()), ("chl_road", "dgll", ()))
+DRYRUN_TIMEOUT_S = 60
+
+
+def phase_dryrun(dev, kernels) -> dict:
+    """10. The dry-run (no hand-written kernel in this process; the CHL
+    cells' checking supersteps launch theirs in the children): each
+    cell's record is ``ok``; the LM cell's rank-0 argument bytes equal
+    the count from ``resolve_params``' local shapes (``spec_arg_bytes``),
+    it has at least one all-gather and a reduce-scatter or all-reduce,
+    and names its bottleneck; PLaNT's superstep is collective-free and
+    DGLL's is not."""
+    import dataclasses
+    import types
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.dryrun import _rules, spec_arg_bytes
+    reset(kernels)
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        out = out_dir / f"{arch}_{shape}.jsonl"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--out",
+               str(out), *extra]
+        procs.append((arch, shape, out, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)))
+    records = {}
+    try:
+        for arch, shape, out, proc in procs:
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t_phase)
+            try:
+                text = proc.communicate(timeout=max(1.0, left))[0].decode()
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"dryrun {arch} x {shape}: no record "
+                                 f"within {DRYRUN_TIMEOUT_S} s")
+            require(proc.returncode == 0, f"dryrun {arch} x {shape} exited "
+                    f"{proc.returncode}: {text[-2000:]}")
+            recs = [json.loads(x) for x in out.read_text().splitlines()]
+            require(len(recs) == 1 and recs[0]["status"] == "ok",
+                    f"dryrun {arch} x {shape}: {recs}")
+            records[(arch, shape)] = recs[0]
+    finally:
+        for *_, proc in procs:
+            proc.kill()
+            proc.wait()
+    lm = records[("smollm_360m", "train_4k")]
+    cfg = dataclasses.replace(cfgbase.get("smollm_360m").config,
+                              n_layers=DRYRUN_LM_LAYERS)
+    shape = cfgbase.SHAPE_BY_NAME["train_4k"]
+    want = spec_arg_bytes(cfg, "train",
+                          types.SimpleNamespace(shape={"data": 16,
+                                                       "model": 16}),
+                          _rules("fsdp"), shape.global_batch, shape.seq_len)
+    got = lm["memory"]["argument_size_in_bytes"]
+    require(got == want > 0, f"dryrun lm: argument bytes {got}, specs give "
+            f"{want}")
+    counts = lm["roofline"]["collective_counts"]
+    require(counts.get("all-gather", 0) > 0 and
+            counts.get("reduce-scatter", 0) + counts.get("all-reduce", 0) > 0,
+            f"dryrun lm: collectives {counts}")
+    require(lm["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective"),
+            f"dryrun lm: bottleneck {lm['roofline']['bottleneck']}")
+    require(records[("chl_road", "plant")]["collective_free"] is True,
+            "dryrun chl_road x plant: not collective-free")
+    require(records[("chl_road", "dgll")]["collective_free"] is False,
+            "dryrun chl_road x dgll: no collective")
+    for (arch, shape), rec in records.items():
+        r = rec["roofline"]
+        log(f"dryrun {arch} x {shape} ({rec['mesh']}, {rec['chips']} "
+            f"ranks): memory {rec['memory']}, flops "
+            f"{rec['cost']['flops']:.4g}, bytes "
+            f"{rec['cost']['bytes accessed']:.4g}, collectives "
+            f"{r['collective_counts']}, bottleneck {r['bottleneck']}, "
+            f"lower {rec['lower_s']} s")
+        print("dryrun record " + json.dumps(rec), flush=True)
+    counts = {k.name: k.launches for k in kernels}
+    require(all(c == 0 for c in counts.values()),
+            f"dryrun: a kernel was launched in this process: {counts}")
+    wall = time.perf_counter() - t_phase
+    log(f"dryrun phase: 3 cells, wall {wall:.2f} s")
+    return {"launches": counts, "wall": wall, "records": records}
+
+
 SOURCES = {
     "ell_relax": ("src/repro_torch/kernels/ell_relax/csrc/ell_relax.cu",
                   "src/repro/kernels/ell_relax/ell_relax.py:123"),
@@ -4320,6 +4435,8 @@ def main() -> int:
     # CHL tensors are freed
     add(phase_lm_serving(dev, kernels)["launches"])
     add(phase_lm_training(dev, kernels)["launches"])
+    # phase 10, the dry-run, in child processes
+    add(phase_dryrun(dev, kernels)["launches"])
 
     # the dense-vs-windowed comparison on the road and random states
     # rides along as extra fields

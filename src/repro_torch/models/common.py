@@ -7,7 +7,9 @@ Parameters are stored in ``param_dtype`` (f32) and activations are
 ``dtype`` (bf16 by default), as in the reference.
 
 `ParamFactory` creates every parameter with the reference's per-layer
-shape and initialises it: ``normal × scale`` (0.02 unless a layer says
+shape and logical axis names (``("d_model", "q_heads", "head_dim")``:
+`repro_torch.parallel.sharding` maps them to mesh axes) and initialises
+it: ``normal × scale`` (0.02 unless a layer says
 otherwise), ``ones`` or ``zeros``, drawn from one explicit
 ``torch.Generator`` in the order the modules are built. The values are
 not ``jax.random``'s: weights carried across from the reference go
@@ -132,8 +134,14 @@ class ParamFactory:
         self.device = torch.device(device)
         self.generator = generator
 
-    def add(self, shape: Tuple[int, ...], init: str = "normal",
-            scale: float = 0.02) -> nn.Parameter:
+    def add(self, shape: Tuple[int, ...], axes: Tuple[str, ...],
+            init: str = "normal", scale: float = 0.02) -> nn.Parameter:
+        """A parameter of ``shape`` whose dimensions carry the logical
+        ``axes`` (the reference's per-layer names, without its leading
+        ``"layers"``), kept on the parameter as ``logical_axes``."""
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in "
+                             f"rank")
         kw = dict(dtype=self.cfg.param_dtype, device=self.device)
         if self.device.type == "meta":
             arr = torch.empty(shape, **kw)
@@ -144,7 +152,9 @@ class ParamFactory:
         else:
             arr = torch.randn(shape, generator=self.generator, **kw)
             arr.mul_(scale)
-        return nn.Parameter(arr)
+        param = nn.Parameter(arr)
+        param.logical_axes = tuple(axes)
+        return param
 
 
 #: the products a ``"dots"`` remat keeps, outside `einsum_batched`:

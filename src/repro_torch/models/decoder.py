@@ -33,6 +33,7 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.common import (ModelConfig, ParamFactory,
                                        remat_call)
 from repro_torch.models.moe import MoE
+from repro_torch.parallel.logical import constrain
 
 Tensor = torch.Tensor
 
@@ -203,6 +204,7 @@ class Stack(nn.Module):
                 x = x + h
             elif blk.ffn == "mlp":
                 x = x + call(blk.mlp, blk.ln2(x))
+            x = constrain(x, "batch", "seq", "embed")
         return x, aux_total
 
 

@@ -37,9 +37,9 @@ class Norm(nn.Module):
     def __init__(self, pf: ParamFactory, d: int):
         super().__init__()
         self.kind = pf.cfg.norm
-        self.scale = pf.add((d,), init="ones")
+        self.scale = pf.add((d,), ("norm_d",), init="ones")
         if self.kind == "layernorm":
-            self.bias = pf.add((d,), init="zeros")
+            self.bias = pf.add((d,), ("norm_d",), init="zeros")
 
     def forward(self, x: Tensor) -> Tensor:
         xf = x.float()
@@ -115,6 +115,11 @@ def write_clamped(buf: Tensor, new: Tensor, start: int, dim: int) -> None:
     start clamped into ``[0, len - S]`` so the slice stays inside
     ``buf`` (``lax.dynamic_update_slice_in_dim``'s rule)."""
     S = new.shape[dim]
+    if S == buf.shape[dim]:
+        # a whole-buffer write: a DTensor cannot narrow a dimension it
+        # shards
+        buf.copy_(new)
+        return
     start = min(max(int(start), 0), buf.shape[dim] - S)
     buf.narrow(dim, start, S).copy_(new)
 
@@ -192,12 +197,12 @@ class Attention(nn.Module):
         cfg = pf.cfg
         self.cfg = cfg
         d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        self.wq = pf.add((d, H, hd))
-        self.wk = pf.add((d, KV, hd))
-        self.wv = pf.add((d, KV, hd))
-        self.wo = pf.add((H, hd, d))
+        self.wq = pf.add((d, H, hd), ("d_model", "q_heads", "head_dim"))
+        self.wk = pf.add((d, KV, hd), ("d_model", "kv_heads", "head_dim"))
+        self.wv = pf.add((d, KV, hd), ("d_model", "kv_heads", "head_dim"))
+        self.wo = pf.add((H, hd, d), ("q_heads", "head_dim", "d_model"))
         if cross:
-            self.gate = pf.add((), init="zeros")     # tanh-gated x-attn
+            self.gate = pf.add((), (), init="zeros")   # tanh-gated x-attn
 
     def forward(self, x: Tensor, *, kv_src: Optional[Tensor] = None,
                 causal: bool = True, use_rope: bool = True,
@@ -282,8 +287,9 @@ class MLP(nn.Module):
         cfg = pf.cfg
         self.cfg = cfg
         g = 2 if cfg.act == "swiglu" else 1
-        self.wi = pf.add((cfg.d_model, g, cfg.d_ff))
-        self.wo = pf.add((cfg.d_ff, cfg.d_model))
+        self.wi = pf.add((cfg.d_model, g, cfg.d_ff),
+                         ("d_model", "gate2", "ff"))
+        self.wo = pf.add((cfg.d_ff, cfg.d_model), ("ff", "d_model"))
 
     def forward(self, x: Tensor) -> Tensor:
         cfg = self.cfg
@@ -304,9 +310,10 @@ class Embeddings(nn.Module):
         super().__init__()
         cfg = pf.cfg
         self.cfg = cfg
-        self.tok = pf.add((cfg.vocab, cfg.d_model))
+        self.tok = pf.add((cfg.vocab, cfg.d_model), ("vocab", "embed_d"))
         if not cfg.tie_embeddings:
-            self.out = pf.add((cfg.d_model, cfg.vocab))
+            self.out = pf.add((cfg.d_model, cfg.vocab),
+                              ("embed_d", "vocab"))
 
     def embed(self, tokens: Tensor) -> Tensor:
         return F.embedding(tokens, self.tok).to(self.cfg.dtype)

@@ -93,13 +93,13 @@ class Mamba(nn.Module):
         cfg = pf.cfg
         self.cfg = cfg
         d, di, ds = cfg.d_model, d_inner_of(cfg), cfg.ssm_state
-        self.win = pf.add((d, 2, di))
-        self.conv = pf.add((cfg.ssm_conv, di))
-        self.wbc = pf.add((di, 2, ds))
-        self.wdt = pf.add((di,), init="zeros")
-        self.alog = pf.add((di, ds), init="zeros")
-        self.dskip = pf.add((di,), init="ones")
-        self.wout = pf.add((di, d))
+        self.win = pf.add((d, 2, di), ("d_model", "gate2", "ssm_i"))
+        self.conv = pf.add((cfg.ssm_conv, di), ("conv", "ssm_i"))
+        self.wbc = pf.add((di, 2, ds), ("ssm_i", "gate2", "ssm_s"))
+        self.wdt = pf.add((di,), ("ssm_i",), init="zeros")
+        self.alog = pf.add((di, ds), ("ssm_i", "ssm_s"), init="zeros")
+        self.dskip = pf.add((di,), ("ssm_i",), init="ones")
+        self.wout = pf.add((di, d), ("ssm_i", "d_model"))
 
     def forward(self, x: Tensor, *,
                 state: Optional[Dict[str, Tensor]] = None,

@@ -26,6 +26,7 @@ from repro_torch.models import decoder as dec
 from repro_torch.models import layers as ly
 from repro_torch.models.common import (ModelConfig, ParamFactory,
                                        remat_call)
+from repro_torch.parallel.logical import constrain
 
 Tensor = torch.Tensor
 
@@ -51,6 +52,14 @@ class LM(nn.Module):
         else:
             self.dec = dec.Stack(pf, cfg.n_layers)
         self.final_ln = ly.Norm(pf, cfg.d_model)
+        self._axes = {k: p.logical_axes for k, p in self.named_parameters()}
+
+    def param_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """``{parameter name: logical axes}``: the reference's axes of
+        the matching leaf without its leading ``"layers"`` (the port
+        keeps a parameter a layer). Taken when the model is built, so
+        it holds after the parameters are swapped for sharded ones."""
+        return dict(self._axes)
 
     @property
     def device(self) -> torch.device:
@@ -74,7 +83,7 @@ class LM(nn.Module):
             start = 0 if pos_offset is None else \
                 min(max(int(pos_offset), 0), rows - S)
             x = x + pos[None, start:start + S].to(cfg.dtype)
-        return x
+        return constrain(x, "batch", "seq", "embed")
 
     def encode(self, audio: Tensor, remat: bool = False) -> Tensor:
         cfg = self.cfg
@@ -114,6 +123,13 @@ class LM(nn.Module):
         """Consume the prompt and fill the caches (in place); returns
         (last logits [B, vocab], state, cross memory to carry into
         decode)."""
+        return self.prefill_body(batch, state)
+
+    def prefill_body(self, batch: Dict[str, Tensor], state: Dict[str, Any]
+                     ) -> Tuple[Tensor, Dict[str, Any], Optional[Tensor]]:
+        """`prefill` outside inference mode (the sharded serve fns run
+        it under ``no_grad``: DTensor re-plans every composite op it
+        meets in inference mode)."""
         x = self.embed_tokens(batch["tokens"], pos_offset=state["pos"])
         mem = self.cross_memory(batch)
         x, _, state = self.dec.run(x, causal=True, cross_memory=mem,
@@ -127,6 +143,12 @@ class LM(nn.Module):
                     ) -> Tuple[Tensor, Dict[str, Any]]:
         """One token for every sequence in the batch. token: int
         [B, 1]."""
+        return self.decode_body(token, state, cross_memory)
+
+    def decode_body(self, token: Tensor, state: Dict[str, Any],
+                    cross_memory: Optional[Tensor] = None,
+                    ) -> Tuple[Tensor, Dict[str, Any]]:
+        """`decode_step` outside inference mode."""
         x = self.embed_tokens(token, pos_offset=state["pos"])
         x, _, state = self.dec.run(x, causal=True,
                                    cross_memory=cross_memory,
@@ -160,7 +182,8 @@ def loss_fn(model: LM, batch: Dict[str, Tensor], *, remat: bool = True,
 def _ce_terms(model: LM, x: Tensor, labels: Tensor) -> Tensor:
     """Σ masked (logsumexp − target logit) over a [B, S', d] slice; the
     logits in f32, the target taken at ``max(label, 0)``."""
-    logits = model.embed.unembed(x).float()
+    logits = constrain(model.embed.unembed(x), "batch", "seq",
+                       "vocab_act").float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       torch.clamp(labels, min=0)[..., None].long())[..., 0]

@@ -60,10 +60,11 @@ class MoE(nn.Module):
         cfg = pf.cfg
         self.cfg = cfg
         d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
-        self.router = pf.add((d, E))
+        self.router = pf.add((d, E), ("d_model", "experts_r"))
         g = 2 if cfg.act == "swiglu" else 1
-        self.wi = pf.add((E, d, g, f))
-        self.wo = pf.add((E, f, d))
+        self.wi = pf.add((E, d, g, f),
+                         ("experts", "d_model", "gate2", "ff"))
+        self.wo = pf.add((E, f, d), ("experts", "ff", "d_model"))
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         """x: [B, S, d] → (out [B, S, d], aux load-balancing loss [])."""

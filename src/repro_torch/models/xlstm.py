@@ -74,10 +74,12 @@ class MLSTM(nn.Module):
         cfg = pf.cfg
         self.cfg = cfg
         d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
-        self.wqkv = pf.add((d, 3, H, hd))
-        self.wif = pf.add((d, 2, H), init="zeros")
-        self.wo = pf.add((H, hd, d))
-        self.ogate = pf.add((d, H, hd))
+        self.wqkv = pf.add((d, 3, H, hd),
+                           ("d_model", "gate3", "q_heads", "head_dim"))
+        self.wif = pf.add((d, 2, H), ("d_model", "gate2", "q_heads"),
+                          init="zeros")
+        self.wo = pf.add((H, hd, d), ("q_heads", "head_dim", "d_model"))
+        self.ogate = pf.add((d, H, hd), ("d_model", "q_heads", "head_dim"))
 
     def forward(self, x: Tensor, *,
                 state: Optional[Dict[str, Tensor]] = None,
@@ -148,9 +150,12 @@ class SLSTM(nn.Module):
         cfg = pf.cfg
         self.cfg = cfg
         d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
-        self.wx = pf.add((d, 4, H, hd))
-        self.wr = pf.add((H, hd, 4, hd), scale=0.01)
-        self.wo = pf.add((H, hd, d))
+        self.wx = pf.add((d, 4, H, hd),
+                         ("d_model", "gate4", "q_heads", "head_dim"))
+        self.wr = pf.add((H, hd, 4, hd),
+                         ("q_heads", "head_dim", "gate4", "head_dim2"),
+                         scale=0.01)
+        self.wo = pf.add((H, hd, d), ("q_heads", "head_dim", "d_model"))
 
     def forward(self, x: Tensor, *,
                 state: Optional[Dict[str, Tensor]] = None,

@@ -57,7 +57,7 @@ class OptState(NamedTuple):
 def init(cfg: AdamWConfig, params: Params) -> OptState:
     """Zero moments in ``state_dtype``, the step 0 (int32, on the
     parameters' device) and, with ``master_copy``, f32 copies."""
-    zeros = {k: torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=cfg.state_dtype)
              for k, p in params.items()}
     master = None
     if cfg.master_copy:

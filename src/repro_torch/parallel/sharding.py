@@ -1,4 +1,21 @@
-"""Hub ownership and the hub-partitioned label layout (paper §5.1).
+"""Parameter sharding rules of the LM zoo, and hub ownership and the
+hub-partitioned label layout (paper §5.1).
+
+**Parameter sharding**: logical axis names to mesh axes. One rule set
+serves every architecture because resolution is shape-aware
+(`repro_torch.parallel.logical.spec_for`): a mesh axis is dropped for a
+dimension it does not divide (15 query heads or 5 KV heads against a
+16-way ``model`` axis fall back to replication, and `head_dim_fallback`
+routes the TP axis to ``head_dim`` instead). The rule sets are the
+reference's, key for key:
+
+- ``TP_RULES``: megatron tensor parallelism on ``model`` only;
+- ``FSDP_RULES``: TP plus ZeRO-style sharding of ``d_model`` (and the
+  embedding rows) over ``data``, parameters and optimizer state alike;
+- ``FSDP_OPT_RULES``: FSDP with the embeddings exempt;
+- ``SP_RULES``: FSDP with the sequence sharded over ``data``.
+
+**Label sharding**:
 
 Shard ``k`` of a hub-partitioned store holds, for every vertex, exactly
 the labels whose hub it owns: ``owner[h] = order_index(h) mod K``. Every
@@ -12,9 +29,84 @@ state (its checkpoint payload is the reference's, key for key).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.parallel.logical import MeshAxes, placements, spec_for
+
+# logical parameter-dimension names -> mesh axes
+TP_RULES: Dict[str, MeshAxes] = {
+    "vocab": "model",
+    "q_heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ff": "model",
+    "experts": "model",
+    "experts_r": "model",
+    "ssm_i": "model",
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "vocab_act": "model",
+    "act_ff": "model",
+    "act_heads": "model",
+    "act_experts": "model",
+}
+
+FSDP_RULES: Dict[str, MeshAxes] = dict(
+    TP_RULES,
+    d_model="data",          # ZeRO-shard params' d_model rows over data
+    embed_d="data",          # (baseline: embeddings FSDP-sharded too)
+)
+
+# embeddings exempt from FSDP (a token gather against a row-sharded
+# table replicates it on every lookup); vocab stays TP-sharded
+FSDP_OPT_RULES: Dict[str, MeshAxes] = dict(FSDP_RULES, embed_d=None)
+
+# long-context cells: also shard the sequence (context/ring style)
+SP_RULES: Dict[str, MeshAxes] = dict(
+    FSDP_RULES,
+    seq="data",
+    batch="pod",
+)
+
+
+def head_dim_fallback(rules: Dict[str, MeshAxes]) -> Dict[str, MeshAxes]:
+    """When q/kv head counts don't divide the TP axis the resolver drops
+    them; this variant re-routes TP to the head_dim dimension."""
+    return dict(rules, q_heads=None, kv_heads=None, head_dim="model")
+
+
+def resolve_params(axes: Mapping[str, Sequence[Optional[str]]], mesh,
+                   rules: Dict[str, MeshAxes],
+                   shapes: Mapping[str, Sequence[int]]) -> Dict[str, list]:
+    """``{parameter name: DTensor placements}`` of a model's parameters
+    from their logical ``axes`` (`LM.param_axes`) and ``shapes`` (a
+    tensor or a shape a name)."""
+    out = {}
+    for k, ax in axes.items():
+        shape = tuple(getattr(shapes[k], "shape", shapes[k]))
+        out[k] = placements(spec_for(ax, rules, mesh, shape), mesh)
+    return out
+
+
+def replicated(mesh) -> list:
+    """Placements of a tensor every rank holds whole."""
+    return placements((), mesh)
+
+
+def batch_spec(mesh, rules: Dict[str, MeshAxes], ndim: int, shape=None):
+    """The spec of a batch tensor: its leading dimension ``"batch"``,
+    the others replicated."""
+    return spec_for(["batch"] + [None] * (ndim - 1), rules, mesh, shape)
+
+
+def batch_sharding(mesh, rules: Dict[str, MeshAxes], ndim: int,
+                   shape=None) -> list:
+    """Placements of `batch_spec`."""
+    return placements(batch_spec(mesh, rules, ndim, shape), mesh)
 
 
 def hub_owner(rank: np.ndarray, num_shards: int) -> np.ndarray:

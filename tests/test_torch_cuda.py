@@ -1162,3 +1162,18 @@ def test_launch_train_on_card_resumes_exactly_once(cuda_device, tmp_path,
     again = train.main(argv + ["--resume"])["losses"]
     assert "[resume] step 3" in capsys.readouterr().out
     np.testing.assert_allclose(again, losses[3:], rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_smoke_cell_on_cuda_fake_device(cuda_device, kind):
+    """The dry-run's fake tensors on the ``cuda`` device type: smollm's
+    smoke cell on a fake 2 x 4 mesh gives the CPU's memory and FLOPs
+    (a CPU mesh changes a shard's move to another dimension from an
+    all-to-all to a gather and a chunk, so bytes and collectives
+    differ)."""
+    from torch_dryrun_cells import check_record, run_smoke_cell
+    rec, want = run_smoke_cell("smollm_360m", kind, "fsdp", device="cuda")
+    check_record(rec, want)
+    cpu, _ = run_smoke_cell("smollm_360m", kind, "fsdp", device="cpu")
+    assert rec["memory"] == cpu["memory"]
+    assert rec["cost"]["flops"] == cpu["cost"]["flops"]

@@ -415,3 +415,23 @@ def test_lm_training_path_has_no_compile_and_no_fallback():
         tree = ast.parse((pkg / module).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
             module
+
+
+#: figures of the reference's TPU (v5e peak, HBM and ICI rates)
+TPU_FIGURES = ("197e12", "819e9", "49.5e9", "ICI_BW", "v5e", "TPU")
+
+
+def test_dryrun_modules_are_scanned_and_state_no_tpu_figure():
+    """The import scan above covers the dry-run and sharding slice, and
+    none of its modules states a TPU figure."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    modules = ("parallel/logical.py", "parallel/dtensor.py",
+               "parallel/sharding.py", "launch/mesh.py", "launch/specs.py",
+               "launch/dryrun.py", "roofline/__init__.py",
+               "roofline/analysis.py", "train/trainer.py")
+    for module in modules:
+        path = f"src/repro_torch/{module}"
+        assert path in names
+        text = (ROOT / path).read_text()
+        for fig in TPU_FIGURES:
+            assert fig not in text, (module, fig)
