@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelTable
 from repro_torch.device import DeviceLike
@@ -56,13 +57,16 @@ def plant_batch(ell_src: torch.Tensor, ell_w: torch.Tensor,
         if hc is None:
             raise ValueError("use_hc=True needs the common label table hc")
         block_fn = hc_block_fn(hc, roots)
-    st = relax.batched_sssp_maxrank(ell_src, ell_w, rank, roots,
-                                    block_fn=block_fn, layout=layout)
-    root_rank = rank[roots.long()][:, None]
-    emit = (st.mrank == root_rank) & torch.isfinite(st.dist)
-    if use_hc:
-        emit &= ~block_fn(st.dist, roots)
-    emit &= valid[:, None]
+    dev = ell_src.device
+    with tracing.span("plant.relax", dev):
+        st = relax.batched_sssp_maxrank(ell_src, ell_w, rank, roots,
+                                        block_fn=block_fn, layout=layout)
+    with tracing.span("plant.emit", dev):
+        root_rank = rank[roots.long()][:, None]
+        emit = (st.mrank == root_rank) & torch.isfinite(st.dist)
+        if use_hc:
+            emit &= ~block_fn(st.dist, roots)
+        emit &= valid[:, None]
     return TreeBatch(emit=emit, dist=st.dist, explored=st.explored,
                      sweeps=st.sweeps)
 

@@ -17,6 +17,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import labels as lbl
 from repro_torch.core.gll import BatchLabels, clean_superstep, construct_batch
 from repro_torch.core.plant import plant_batch
@@ -166,16 +167,21 @@ class PlantPolicy(Policy):
         return BatchSchedule(self.order, self.batch)
 
     def step(self, st: Step, sink) -> StepOutcome:
-        a = self.arrays
-        roots_d = torch.as_tensor(st.roots, device=self.device)
-        valid_d = torch.as_tensor(st.valid, device=self.device)
-        tb = plant_batch(a.ell_src, a.ell_w, a.rank, roots_d, valid_d,
-                         hc=self.hc, use_hc=self.hc is not None,
-                         layout=self.layout)
-        sink.insert(roots_d, tb.emit, tb.dist)
-        stats = pack_stats(tb.emit.sum(dtype=torch.int32),
-                           (tb.explored * valid_d).sum(dtype=torch.int32),
-                           tb.sweeps, device=self.device)
+        a, dev = self.arrays, self.device
+        # spans while a profiler runs (`repro_torch.tracing`)
+        with tracing.span("plant.step", dev, pos=st.pos):
+            with tracing.span("plant.roots_h2d", dev):
+                roots_d = torch.as_tensor(st.roots, device=dev)
+                valid_d = torch.as_tensor(st.valid, device=dev)
+            tb = plant_batch(a.ell_src, a.ell_w, a.rank, roots_d, valid_d,
+                             hc=self.hc, use_hc=self.hc is not None,
+                             layout=self.layout)
+            sink.insert(roots_d, tb.emit, tb.dist)
+            with tracing.span("plant.stats", dev):
+                stats = pack_stats(
+                    tb.emit.sum(dtype=torch.int32),
+                    (tb.explored * valid_d).sum(dtype=torch.int32),
+                    tb.sweeps, device=dev)
         return StepOutcome(mode=self.name, stats=stats,
                            trees=int(st.valid.sum()))
 

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import labels as lbl
 from repro_torch.core.labels import LabelOverflowError, LabelTable
 from repro_torch.parallel.sharding import ShardAccumulator
@@ -69,9 +70,10 @@ class DenseSink:
     def insert(self, roots: torch.Tensor, emit: torch.Tensor,
                dist: torch.Tensor, channel: Optional[str] = None) -> None:
         ch = channel or self.channels[0]
-        self._tables[ch], ovf = lbl.insert_batch(self._tables[ch], roots,
-                                                 emit, dist)
-        self._ovf |= ovf
+        with tracing.span("sink.insert", self.device):
+            self._tables[ch], ovf = lbl.insert_batch(self._tables[ch],
+                                                     roots, emit, dist)
+            self._ovf |= ovf
 
     def note_overflow(self, flag: torch.Tensor) -> None:
         """Fold in an overflow verdict from outside the sink (GLL's

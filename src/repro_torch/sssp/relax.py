@@ -30,7 +30,10 @@ Execution follows the reference driver sweep for sweep, so ``dist``,
 - the fixpoint is checked every ``check_every`` sweeps (default
   ``DEFAULT_CHECK_EVERY`` on the kernel path, 1 on the plain path);
   overshoot past the fixpoint is a no-op sweep;
-- the loop is a Python loop bounded by ``max_sweeps`` (default n).
+- the loop is a Python loop bounded by ``max_sweeps`` (default n);
+- while a profiler runs, `repro_torch.tracing` records each sweep's
+  events and the counts of its active set, and each check as a
+  ``relax.check`` span.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.ell_relax import (BucketedEll, ell_sweep,
                                            resolve_sweep_backend,
                                            sweep_layout)
@@ -67,7 +71,7 @@ class RelaxState(NamedTuple):
 def _init(n: int, roots: torch.Tensor, rank: torch.Tensor):
     B = roots.shape[0]
     dev = roots.device
-    ar = torch.arange(B, device=dev)
+    ar = torch.arange(B, device=roots.device)
     dist = torch.full((B, n), torch.inf, dtype=torch.float32, device=dev)
     dist[ar, roots] = 0.0
     mrank = torch.full((B, n), -1, dtype=torch.int32, device=dev)
@@ -113,6 +117,10 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
               if check_every is None else check_every)
     stride = max(1, min(stride, cap))
     layout = resolve_sweep_backend(ell_src, ell_w, B, layout=layout)
+    # per-sweep rows and check spans while a profiler runs
+    # (`repro_torch.tracing`)
+    rows = tracing.sweep_rows(ell_src, ell_w, layout)
+    dev = roots.device
     dist, mrank = _init(n, roots, rank)
     ar = torch.arange(B, device=roots.device)
 
@@ -130,6 +138,8 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
     prev_blocked = blocked_of(dist) if has_block and gated else None
 
     def sweep_once(dist, mrank, frontier, prev_blocked):
+        if rows is not None:
+            rows.open()
         blocked = None
         if gated:
             if has_block:
@@ -143,15 +153,29 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
                 prop = torch.where(active, dist, torch.inf)
             alive = active.any(dim=1)
         else:
-            prop = (torch.where(blocked_of(dist), torch.inf, dist)
-                    if has_block else dist)
+            if has_block:
+                blocked = blocked_of(dist)
+                prop = torch.where(blocked, torch.inf, dist)
+            else:
+                prop = dist
             alive = all_alive
+            active = frontier
+            if rows is not None and prev_blocked is not None:
+                active = frontier | (prev_blocked & ~blocked)
         nd, nm = ell_sweep(dist, mrank, prop, alive, ell_src, ell_w, rank,
                            layout=layout)
-        return nd, nm, (nd < dist) | (nm != mrank), blocked
+        changed = (nd < dist) | (nm != mrank)
+        if rows is not None:
+            rows.close(active)
+        return nd, nm, changed, blocked
+
+    def pending(frontier):
+        """The fixpoint check: the host waits for one word."""
+        with tracing.span("relax.check", dev):
+            return bool(frontier.any())
 
     it = 0
-    while it < cap and bool(frontier.any()):
+    while it < cap and pending(frontier):
         for _ in range(stride):
             dist, mrank, frontier, prev_blocked = sweep_once(
                 dist, mrank, frontier, prev_blocked)
