@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the dense relaxation kernel, the (min, +) kernel and the label
-query of two or more checkouts of this repository on one CUDA card, in
-turns.
+"""Time the dense and the source-windowed relaxation kernels, the
+(min, +) kernel and the label query of two or more checkouts of this
+repository on one CUDA card, in turns (``--states`` keeps the named
+measurements only).
 
-    python3 kernel_ab.py ROOT [ROOT ...]
+    python3 kernel_ab.py [--states NAME,...] ROOT [ROOT ...]
 
 Each ROOT is a checkout (for example a ``git archive`` of the parent
 commit unpacked under the git-ignored ``build/``, and ``.``); give them
@@ -20,6 +21,16 @@ measures, with ``chip_smoke.py``'s timers:
   sweeps are paced by the host;
 - dense-block PLaNT (scale_free(32,768), 64 roots): the fixpoint's wall
   and launches, then ``minplus`` at B = 64, K = N = 32,768;
+- the source-windowed sweep ``ell_relax_windowed`` (its public API in
+  every checkout) on two synthetic states made on the card from a seed:
+  a uniform random graph shaped as ``chlbench``'s ``chl_urand22`` (n =
+  4,194,304, Poisson(34) finite in-edges a row in an ELL of width 72,
+  weights in [1, 2048), B = 4 and the card's window plan) and a
+  4096 x 4096 lattice (B = 4), every tree alive and ``prop`` finite at a
+  set share of the sources (``windowed-urand-<per mille>``,
+  ``windowed-grid-<per mille>``): the device time all of a call's device
+  work covers, ms per call by CUDA events, held equal to the dense
+  sweep ``ell_relax`` on the same operands;
 - the serving entry point ``query_table(table, u, v)`` (its public API
   in every checkout) on 65,536 random pairs over four tables: the
   exactness build's (L = 288), a synthetic road-like table (n =
@@ -49,8 +60,13 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+#: the windowed sweep's states: graph and finite-source share, per mille
+WINDOWED = {f"windowed-{g}-{pm}": (g, pm) for g, pms in (
+    ("urand", (1, 10, 100, 300, 500, 1000)), ("grid", (10, 1000)))
+    for pm in pms}
 STATES = ("exactness", "road-mid", "random-mid", "dense", "query-exactness",
-          "query-road", "query-random", "query-synthetic-256")
+          "query-road", "query-random", "query-synthetic-256") + tuple(
+              WINDOWED)
 
 
 def digest(*ts) -> str:
@@ -73,13 +89,58 @@ def relax_state(dev, g, rank, batch, sweeps):
     return (st.dist, st.mrank, st.dist, alive, a.ell_src, a.ell_w, a.rank)
 
 
-def measure_root(root: Path) -> dict:
-    """One turn: every measurement on ``root``'s package."""
-    sys.path.insert(0, str(HERE))
-    import chip_smoke as cs
-    sys.path.insert(0, str(root / "src"))
+def windowed_graph(dev, graph):
+    """The windowed states' adjacency, made on the card from a seed:
+    (ell_src, ell_w)."""
     import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    if graph == "urand":
+        n, deg = 4194304, 72
+        finite = torch.poisson(torch.full((n,), 34.0, device=dev),
+                               generator=gen).clamp(max=deg)
+        es = torch.randint(0, n, (n, deg), device=dev, generator=gen,
+                           dtype=torch.int32)
+        ok = torch.arange(deg, device=dev)[None, :] < finite[:, None]
+    else:
+        side = 4096
+        i = torch.arange(side * side, device=dev)
+        r, c = i // side, i % side
+        ok = torch.stack([c > 0, c < side - 1, r > 0, r < side - 1], 1)
+        es = torch.where(ok, torch.stack([i - 1, i + 1, i - side, i + side],
+                                         1), 0).to(torch.int32)
+    ew = torch.where(ok, torch.randint(1, 2048, ok.shape, device=dev,
+                                       generator=gen).float(), torch.inf)
+    return es, ew
+
+
+def windowed_operands(dev, n, per_mille):
+    """B = 4 planes over n vertices, every tree alive, prop finite at
+    ``per_mille`` of the sources: (dist, mrank, prop, alive, rank)."""
+    import torch
+    B = 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(per_mille)
+    dist = torch.randint(0, 1 << 20, (B, n), device=dev,
+                         generator=gen).float()
+    mrank = torch.randint(0, n, (B, n), device=dev, generator=gen,
+                          dtype=torch.int32)
+    prop = torch.where(torch.rand((B, n), device=dev, generator=gen)
+                       < per_mille / 1000, dist, torch.inf)
+    rank = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    return dist, mrank, prop, alive, rank
+
+
+def measure_root(root: Path, only) -> dict:
+    """One turn: every measurement of ``only`` on ``root``'s package."""
+    # the checkout's package first: chip_smoke.py imports repro_torch
+    # from beside it, which must then find this one already loaded
+    sys.path.insert(0, str(root / "src"))
     import repro_torch
+    sys.path.insert(1, str(HERE))
+    import chip_smoke as cs
+    import torch
     assert Path(repro_torch.__file__).resolve().is_relative_to(
         root.resolve()), repro_torch.__file__
     from repro_torch.engine import rank_order
@@ -88,7 +149,9 @@ def measure_root(root: Path) -> dict:
                                     random_connected, scale_free)
     from repro_torch.index import BuildPlan, build
     from repro_torch.kernels import all_kernels, build_all
-    from repro_torch.kernels.ell_relax import ell_relax, ell_sweep_plain
+    from repro_torch.kernels.ell_relax import (clear_layout_cache, ell_relax,
+                                               ell_relax_windowed,
+                                               ell_sweep_plain, sweep_layout)
     from repro_torch.kernels.label_query import query_table
     from repro_torch.kernels.minplus import (dense_weights, minplus,
                                              plant_fixpoint_dense)
@@ -106,6 +169,8 @@ def measure_root(root: Path) -> dict:
                              extra_edges=cs.MID_RANDOM_N, seed=0)),
     }
     for what, make in states.items():
+        if what not in only:
+            continue
         g, rank, batch, sweeps, reps = make()
         ops = relax_state(dev, g, rank, batch, sweeps)
         kd, km = ell_relax(*ops)
@@ -131,6 +196,36 @@ def measure_root(root: Path) -> dict:
                                       for r in idx.report.supersteps)
             out[what]["digest"] += "/" + digest(*idx.table)
             exact_table = idx.table
+    for graph in ("urand", "grid"):
+        wanted = [w for w, (g, _) in WINDOWED.items()
+                  if g == graph and w in only]
+        if not wanted:
+            continue
+        es, ew = windowed_graph(dev, graph)
+        lay = sweep_layout(es, ew, bb=4)
+        for what in wanted:
+            dist, mrank, prop, alive, rank = windowed_operands(
+                dev, es.shape[0], WINDOWED[what][1])
+            call = lambda: ell_relax_windowed(         # noqa: E731
+                dist, mrank, prop, alive, lay, rank)
+            kd, km = call()
+            dd, dm = ell_relax(dist, mrank, prop, alive, es, ew, rank)
+            torch.cuda.synchronize()
+            cs.require(torch.equal(kd, dd) and torch.equal(km, dm),
+                       f"ell_relax_windowed != ell_relax at {what} in {root}")
+            evs = cs.device_events(call, 10)
+            out[what] = {"ms": cs.time_ms(call, reps=20),
+                         "device_ms": (cs.covered(evs) / 1e3 / 10
+                                       if evs else None),
+                         "host_us": cs.host_us(call, 5, rounds=5),
+                         "digest": digest(kd, km)}
+            del dist, mrank, prop, rank, kd, km, dd, dm
+        del es, ew, lay
+        clear_layout_cache()
+        torch.cuda.empty_cache()
+    if "dense" not in only and not any(w.startswith("query-")
+                                       for w in only):
+        return out
     g = scale_free(cs.DENSE_N, attach=2, seed=0)
     rank = degree_ranking(g)
     a = device_arrays(g, rank, dev)
@@ -165,6 +260,8 @@ def measure_root(root: Path) -> dict:
             dev, cs.SYNTH_N, cs.SYNTH_L, cs.SYNTH_POOL, seed=256),
     }
     for what, make in tables.items():
+        if what not in only:
+            continue
         table = make()
         u, v = cs.random_pairs(dev, table.n, 13)
         call = lambda: query_table(table, u, v)     # noqa: E731
@@ -188,25 +285,39 @@ def measure_root(root: Path) -> dict:
 
 def main() -> int:
     if sys.argv[1:2] == ["--measure"]:
-        print(json.dumps(measure_root(Path(sys.argv[2]))), flush=True)
+        print(json.dumps(measure_root(Path(sys.argv[2]),
+                                      sys.argv[3].split(","))), flush=True)
         return 0
+    args = sys.argv[1:]
+    only = STATES
+    if args[:1] == ["--states"]:
+        only = tuple(args[1].split(","))
+        if "query-exactness" in only and "exactness" not in only:
+            only += ("exactness",)       # its table is the build's
+        args = args[2:]
+        unknown = set(only) - set(STATES)
+        if unknown:
+            print(f"kernel_ab: no such state {sorted(unknown)}",
+                  file=sys.stderr)
+            return 2
     import torch
-    if not torch.cuda.is_available() or len(sys.argv) < 2:
+    if not torch.cuda.is_available() or not args:
         print("kernel_ab: needs a CUDA card and at least one checkout",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs
     runs = []
-    for root in sys.argv[1:]:
-        res = subprocess.run([sys.executable, __file__, "--measure", root],
+    for root in args:
+        res = subprocess.run([sys.executable, __file__, "--measure", root,
+                              ",".join(only)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout, res.stderr, file=sys.stderr)
             return 1
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         r = runs[-1]
-        for what in STATES:
+        for what in only:
             m = r[what]
             extra = (f", fixpoint {m['fixpoint_s']:.3f} s, "
                      f"{m['launches']} launches" if what == "dense" else
@@ -220,7 +331,7 @@ def main() -> int:
             print(f"{root} {what}: {m['ms']:.4f} ms per call (events), "
                   f"device {cs.fmt_ms(m['device_ms'])}{extra}; outputs "
                   f"{m['digest']}", flush=True)
-    for what in STATES:
+    for what in only:
         cs.require(len({r[what]["digest"] for r in runs}) == 1,
                    f"{what}: the checkouts' outputs differ")
     card = cs.card_line()

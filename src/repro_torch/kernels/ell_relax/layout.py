@@ -39,6 +39,14 @@ as the identity.
 
 Everything is built with torch on the adjacency's own device, once per
 graph: `sweep_layout` caches by tensor identity.
+
+`BucketedEll.gather_gain` measures how much the windowed kernel's prop
+gathers cost on this layout, for its activity mask (``windowed.py``):
+the edges a segment, times the distinct 32 B sectors of a source plane
+that a tile's edges touch, an edge (near 1 where sources are scattered
+over the window, as on a random graph; far below it where a tile's
+sources crowd a few sectors, as on a lattice in row order, whose
+gathers are cheap and gain nothing from the mask).
 """
 
 from __future__ import annotations
@@ -60,6 +68,11 @@ TILE_SEGS = 256
 TILE_EDGES = 2048
 
 _I32_MAX = 2 ** 31 - 1
+
+#: tiles of a layout, evenly spaced, whose gathers `gather_gain` counts
+_GAIN_SAMPLE_TILES = 4096
+#: prop values a 32 B sector holds
+_SECTOR = 8
 
 
 def window_cap(l2_bytes: int, *, bb: int, bn: int = 128) -> int:
@@ -165,7 +178,8 @@ class BucketedEll:
       chunks repeat the tile's last real window.
 
     ``src``, ``w``, ``chunk_win``, ``dk`` and ``num_chunks`` (the
-    reference's format) are built from the segments on first access.
+    reference's format) are built from the segments on first access, and
+    so is ``gather_gain`` (module docstring).
     """
 
     def __init__(self, segments: WindowSegments, *, n: int, deg: int,
@@ -180,6 +194,7 @@ class BucketedEll:
         self.bn = bn
         self.dk_max = dk_max
         self._padded = None
+        self._gain = None
 
     def plan(self) -> WindowPlan:
         return WindowPlan(self.window, self.num_windows, self.n_pad)
@@ -189,6 +204,14 @@ class BucketedEll:
             self._padded = _pad_buckets(self.segments, self.plan(),
                                         bn=self.bn, dk_max=self.dk_max)
         return self._padded
+
+    @property
+    def gather_gain(self) -> float:
+        """Edges a segment times distinct source sectors an edge, over
+        `_GAIN_SAMPLE_TILES` evenly spaced tiles (0.0 without edges)."""
+        if self._gain is None:
+            self._gain = _gather_gain(self.segments, self.n)
+        return self._gain
 
     src = property(lambda self: self._reference_format()[0])
     w = property(lambda self: self._reference_format()[1])
@@ -262,6 +285,26 @@ def _tiles(ptr: torch.Tensor, seg_win: torch.Tensor, win_segs: List[int]):
     win_tiles = torch.searchsorted(
         tile_segs, torch.tensor(win_segs, device=dev)).tolist()
     return seg_end.to(torch.int32), tile_segs, tile_edges, win_tiles
+
+
+def _gather_gain(seg: WindowSegments, n: int) -> float:
+    """`BucketedEll.gather_gain` of these segments."""
+    S, E = seg.seg_row.numel(), seg.edge_src.numel()
+    if not E:
+        return 0.0
+    T = seg.tile_segs.numel() - 1
+    pick = torch.arange(0, T, max(1, T // _GAIN_SAMPLE_TILES),
+                        device=seg.tile_edges.device)
+    lo = seg.tile_edges[pick]
+    counts = seg.tile_edges[pick + 1] - lo
+    tile = torch.repeat_interleave(torch.arange(pick.numel(),
+                                                device=lo.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    edge = lo[tile] + torch.arange(tile.numel(), device=lo.device) \
+        - first[tile]
+    sectors = tile * (n // _SECTOR + 1) + seg.edge_src[edge] // _SECTOR
+    distinct = torch.unique(sectors).numel()
+    return (E / S) * (distinct / tile.numel())
 
 
 def _pad_buckets(seg: WindowSegments, plan: WindowPlan, *, bn: int,

@@ -34,7 +34,13 @@ How to read it::
   (trees with a nonempty set), ``active_pairs`` (its (tree, vertex)
   pairs), ``active_edges`` (the sum of those sources' finite
   out-degrees: the (tree, edge) folds that can change a value), and
-  ``edges`` (the adjacency's finite arcs);
+  ``edges`` (the adjacency's finite arcs); where the windowed kernel
+  packed its activity mask (`kernels.ell_relax.windowed.mask_pays`):
+  ``mask_bits`` (the set bits: (live tree, source) pairs whose prop is
+  finite), ``gated_windows`` (the (window, tree group) pairs that took
+  the gated fold) and ``windows`` (all such pairs); None where no mask
+  was packed (the CPU's plain sweeps, the dense kernel, a layout where
+  the mask does not pay);
 - ``checks``: the ``relax.check`` spans, one a fixpoint check, whose
   ``device_ms`` is the stream's gap from just before the ``any``
   reduction to just before the loop's next op: the reduction, the
@@ -50,9 +56,10 @@ range the profiler projects onto the device timeline would read as
 device work in a trace of the same window. Events are resolved and
 counters fetched (in one transfer) only when `snapshot` is called, so
 recording never synchronises the stream. What recording adds to the
-device: a masked sum over each sweep's active plane (`SweepRows`), and
-once per adjacency a count of its out-degrees, on its first recorded
-sweep.
+device: a masked sum over each sweep's active plane (`SweepRows`), on
+the windowed route one copy of the kernel's per-window counts
+(`window_stats`), and once per adjacency a count of its out-degrees, on
+its first recorded sweep.
 """
 
 from __future__ import annotations
@@ -71,6 +78,9 @@ _DEGREE_CACHE_MAX = 4
 _CHUNK = 64
 #: one active pair in a sweep's packed count (`SweepRows`)
 _PAIR = 1 << 32
+#: a sweep's activity-mask fields, None where no mask was packed
+_MASK_FIELDS = ("mask_bits", "gated_windows", "windows")
+_NO_MASK = (None, None, None)
 
 
 def active() -> bool:
@@ -153,12 +163,13 @@ class SweepRows:
     active source adds ``2**32 + out-degree``, so the sum holds the
     tree's active pairs above bit 32 and their out-edges below."""
 
-    __slots__ = ("device", "packed", "edges", "call", "parent", "batch",
-                 "pos", "sweeps", "events", "chunks", "device_ms",
-                 "counts")
+    __slots__ = ("rec", "device", "packed", "edges", "call", "parent",
+                 "batch", "pos", "sweeps", "events", "chunks", "device_ms",
+                 "counts", "mask_chunks", "masks")
 
     def __init__(self, rec: "Recorder", device, packed: torch.Tensor,
                  edges: int):
+        self.rec = rec
         self.device, self.packed, self.edges = device, packed, edges
         self.call = len(rec._sweep_calls)
         self.parent = rec._stack[-1] if rec._stack else None
@@ -169,12 +180,27 @@ class SweepRows:
         self.chunks: List[torch.Tensor] = []    # i64 [_CHUNK, B]
         self.device_ms: List[Optional[float]] = []
         self.counts: Optional[List[tuple]] = None
+        self.mask_chunks: List[torch.Tensor] = []   # i64 [_CHUNK, 2 w]
+        self.masks: List[Optional[tuple]] = []
 
     def open(self) -> None:
         self.events.append(_event_pair(self.device))
+        self.rec._open = self
+
+    def window_stats(self, stats: torch.Tensor) -> None:
+        """The open sweep's mask counts: ``stats`` i32 [2, windows,
+        groups] (set bits, then 1 where the fold was gated), copied into
+        a device buffer; rows no sweep wrote read -1."""
+        k, i = divmod(self.sweeps, _CHUNK)
+        if len(self.mask_chunks) <= k:
+            self.mask_chunks.append(torch.full(
+                (_CHUNK, stats.numel()), -1, dtype=torch.int64,
+                device=stats.device))
+        self.mask_chunks[k][i].copy_(stats.view(-1))
 
     def close(self, active: torch.Tensor) -> None:
         """``active``: bool [B, n], the sweep's propagating set."""
+        self.rec._open = None
         _close_pair(self.events[-1], self.device)
         i = self.sweeps % _CHUNK
         if i == 0:
@@ -198,6 +224,7 @@ class Recorder:
         self._spans: List[_Span] = []
         self._stack: List[int] = []
         self._sweep_calls: List[SweepRows] = []
+        self._open: Optional[SweepRows] = None
         self._batches = 0
         self._degrees.clear()
 
@@ -220,6 +247,13 @@ class Recorder:
         rows = SweepRows(self, ell_src.device, packed, edges)
         self._sweep_calls.append(rows)
         return rows
+
+    def window_stats(self, stats: torch.Tensor) -> None:
+        """Hand the windowed kernel's per-window mask counts (i32 [2,
+        windows, groups]) to the sweep row that is open; nothing while
+        none is (no profiler, or a sweep outside `sssp.relax`)."""
+        if self._open is not None:
+            self._open.window_stats(stats)
 
     def _out_degree(self, ell_src, ell_w, layout) -> Tuple[torch.Tensor,
                                                           int]:
@@ -263,7 +297,7 @@ class Recorder:
                     by_device.setdefault(c.device, []).append(c)
         for calls in by_device.values():        # one fetch a device
             flat = torch.cat([x.flatten() for c in calls
-                              for x in c.chunks]).tolist()
+                              for x in c.chunks + c.mask_chunks]).tolist()
             at = 0
             for c in calls:
                 B = c.chunks[0].shape[1]
@@ -273,6 +307,15 @@ class Recorder:
                                      sum(x >> 32 for x in row),
                                      sum(x & (_PAIR - 1) for x in row)))
                 at += B * _CHUNK * len(c.chunks)
+                c.masks = [None] * c.sweeps
+                if c.mask_chunks:
+                    w = c.mask_chunks[0].shape[1]
+                    for i in range(c.sweeps):
+                        row = flat[at + w * i:at + w * (i + 1)]
+                        if row[0] >= 0:
+                            c.masks[i] = (sum(row[:w // 2]),
+                                          sum(row[w // 2:]), w // 2)
+                    at += w * _CHUNK * len(c.mask_chunks)
 
     def snapshot(self) -> dict:
         """Everything recorded so far as plain host data (module
@@ -290,7 +333,8 @@ class Recorder:
                    "batch": c.batch, "pos": c.pos,
                    "device_ms": c.device_ms[i], "trees_alive": alive,
                    "active_pairs": pairs, "active_edges": edges,
-                   "edges": c.edges}
+                   "edges": c.edges,
+                   **dict(zip(_MASK_FIELDS, c.masks[i] or _NO_MASK))}
                   for c in self._sweep_calls
                   for i, (alive, pairs, edges) in enumerate(c.counts)]
         return {"spans": spans, "sweeps": sweeps,
@@ -303,6 +347,7 @@ span = RECORDER.span
 sweep_rows = RECORDER.sweep_rows
 snapshot = RECORDER.snapshot
 reset = RECORDER.reset
+window_stats = RECORDER.window_stats
 
 __all__ = ["RECORDER", "Recorder", "SweepRows", "active", "reset",
-           "snapshot", "span", "sweep_rows"]
+           "snapshot", "span", "sweep_rows", "window_stats"]

@@ -72,6 +72,8 @@ from repro_torch.kernels.ell_relax import (WINDOWED_KERNEL, ell_relax,
                                            ell_sweep_bucketed_plain,
                                            ell_sweep_plain, sweep_layout)
 from repro_torch.kernels.ell_relax import layout as port_layout
+from repro_torch.kernels.ell_relax import windowed
+from repro_torch.kernels.ell_relax.windowed import GATE_TREES, MASK_GROUP
 from repro_torch.kernels.ell_relax.ell_relax import (EDGE_SLOTS, TILE_V,
                                                      launch_geometry)
 from repro_torch.kernels.cuda import sm_count
@@ -169,24 +171,56 @@ def test_build_on_card_equals_cpu_build(cuda_device, kind):
 HUB_N = 2 * port_layout.TILE_EDGES + 512
 
 
+#: vertices of the activity-mask cases: windows of tens of thousands of
+#: vertices, so that a tile's gathers spread over many sectors, as on a
+#: random graph at scale, and the mask can pay (`windowed.mask_pays`)
+MASK_N = 200_000
+#: finite-source densities of the activity-mask kinds of `windowed_state`
+DENSITY = {"none": 0.0, "p1": 0.01, "p50": 0.5, "p100": 1.0}
+#: one density a window of the "straddle" kind: the first windows take
+#: the gated fold, the last ones the ungated fold
+STRADDLE = [0.0, 0.01, 0.1, 0.5, 1.0]
+
+
 def windowed_state(rng, B, n, deg, windows, kind, device):
     """`sweep_state` and a layout of ``windows`` forced source windows.
     ``kind``: "random"; "hub" (row 7 takes its whole ELL row from the
     first window, past the tile's edge buffer); "gap" (no source in
-    window 1); "retired" (only tree 1 alive); "dead" (no tree alive)."""
+    window 1); "retired" (only tree 1 alive); "dead" (no tree alive);
+    with every tree alive and prop finite at a share of the sources,
+    the same in every window ("none", "p1", "p50", "p100": `DENSITY`)
+    or one share a window ("straddle": `STRADDLE`). "hub+p1" is a hub
+    row at density p1; "even+p1" the same density with only the even
+    trees alive."""
     state = sweep_state(rng, B, n, deg, "cpu")
     n_bn = -(-n // 128) * 128
     mw = -(-(-(-n_bn // windows)) // 128) * 128     # the cap for `windows`
-    if kind == "hub":
+    shape, _, dens = kind.partition("+")
+    if shape in DENSITY or shape == "straddle":
+        shape, dens = "random", shape
+    if shape == "hub":
         state[4][7] = torch.arange(deg, dtype=torch.int32)
         state[5][7] = torch.as_tensor(rng.integers(1, 9, deg),
                                       dtype=torch.float32)
-    elif kind == "gap":
+    elif shape == "gap":
         es = state[4]
         state[4] = torch.where((es >= mw) & (es < 2 * mw), es - mw, es)
-    elif kind in ("retired", "dead"):
+    elif shape in ("retired", "dead"):
         state[3][:] = False
-        state[3][1] = kind == "retired"
+        state[3][1] = shape == "retired"
+    if dens:
+        share = (torch.full((n,), DENSITY[dens]) if dens in DENSITY else
+                 torch.tensor(STRADDLE[:windows])[torch.arange(n) // mw])
+        finite = torch.as_tensor(rng.random((B, n))) < share
+        prop = torch.where(finite, torch.as_tensor(
+            rng.integers(0, 9, (B, n)), dtype=torch.float32), torch.inf)
+        # the sweep loop's prop is dist where a source is active
+        state[0] = torch.where(finite, prop, state[0])
+        state[1] = torch.where(finite & (state[1] < 0), 0, state[1])
+        state[2] = prop
+        state[3][:] = True
+        if shape == "even":
+            state[3][1::2] = False
     state = [x.to(device) for x in state]
     return state, sweep_layout(state[4], state[5], bb=B, max_window=mw)
 
@@ -197,7 +231,14 @@ def windowed_state(rng, B, n, deg, windows, kind, device):
     (3, 1000, 8, 3, "random"), (5, 2000, 6, 4, "random"),
     (33, 700, 12, 3, "random"), (4, HUB_N, HUB_N // 2, 2, "hub"),
     (5, 1000, 8, 4, "gap"), (5, 1000, 8, 3, "retired"),
-    (4, 500, 8, 2, "dead")])
+    (4, 500, 8, 2, "dead"),
+    (4, MASK_N, 40, 3, "none"), (4, MASK_N, 40, 3, "p1"),
+    (4, MASK_N, 40, 3, "p50"), (4, MASK_N, 40, 3, "p100"),
+    (4, MASK_N, 40, 5, "straddle"), (9, MASK_N, 40, 3, "p1"),
+    (33, MASK_N, 40, 3, "p1"), (9, MASK_N, 40, 5, "straddle"),
+    (33, MASK_N, 40, 5, "straddle"), (4, HUB_N, HUB_N // 2, 2, "hub+p1"),
+    (5, MASK_N, 40, 3, "even+p1"), (65, 700, 40, 3, "p1"),
+    (4, 3000, 40, 3, "p1")])
 def test_ell_relax_windowed_equals_plain(cuda_device, B, n, deg, windows,
                                          kind):
     state, lay = windowed_state(np.random.default_rng(B * n), B, n, deg,
@@ -206,7 +247,7 @@ def test_ell_relax_windowed_equals_plain(cuda_device, B, n, deg, windows,
     s = lay.segments
     tile_edges = s.seg_ptr[s.tile_segs].diff()
     assert bool((tile_edges > port_layout.TILE_EDGES).any()) == (
-        kind == "hub")
+        kind.startswith("hub"))
     if kind == "gap":
         assert s.win_tiles[1] == s.win_tiles[2]
     kd, km = ell_relax_windowed(*state[:4], lay, state[6])
@@ -214,6 +255,73 @@ def test_ell_relax_windowed_equals_plain(cuda_device, B, n, deg, windows,
     assert torch.equal(kd, pd) and torch.equal(km, pm)
     dd, dm = ell_relax(*state)
     assert torch.equal(kd, dd) and torch.equal(km, dm)
+
+
+@pytest.mark.parametrize("B,n,deg,windows,kind", [
+    (4, MASK_N, 40, 5, "straddle"), (9, MASK_N, 40, 5, "straddle"),
+    (5, MASK_N, 40, 3, "even+p1"), (4, HUB_N, HUB_N // 2, 2, "hub+p1"),
+    (65, 700, 40, 3, "p1"), (4, 3000, 40, 3, "p1")])
+def test_ell_relax_windowed_records_mask_counts(cuda_device, B, n, deg,
+                                                windows, kind):
+    """Where the mask pays (`windowed.mask_pays`: a scattered layout,
+    at most `GATE_TREES` trees), the per-window counts the sweep hands
+    the open recorder row equal a host popcount of ``isfinite(prop) &
+    alive`` per (window, group of `MASK_GROUP` trees), and its choices
+    `windowed.gated` on them; the sweep's snapshot row sums them, and a
+    straddling sweep takes both folds. Where it does not (a small
+    crowded layout, a wide batch), no mask is packed and the row's mask
+    fields are absent."""
+    from torch.autograd.profiler import emit_nvtx
+    from repro_torch import tracing
+    state, lay = windowed_state(np.random.default_rng(B + n), B, n, deg,
+                                windows, kind, cuda_device)
+    dist, mrank, prop, alive, es, ew, rank = state
+    nw, W, G = lay.num_windows, lay.window, -(-B // MASK_GROUP)
+    tracing.reset()
+    # the recorder runs under any profiler; an NVTX one leaves
+    # the CUDA activity profiler of later tests untouched
+    with emit_nvtx():
+        rows = tracing.sweep_rows(es, ew, lay)
+        rows.open()
+        kd, km = ell_relax_windowed(dist, mrank, prop, alive, lay, rank)
+        rows.close(torch.isfinite(prop))
+    snap = tracing.snapshot()["sweeps"]
+    got = [x.cpu() for x in rows.mask_chunks]
+    tracing.reset()
+    pd, pm = ell_sweep_bucketed_plain(dist, mrank, prop, alive, lay, rank)
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+    assert len(snap) == 1
+    pays = windowed.mask_pays(B, lay)
+    assert pays == (B <= GATE_TREES and n == MASK_N or kind == "hub+p1")
+    if not pays:
+        assert got == []
+        assert (snap[0]["mask_bits"], snap[0]["gated_windows"],
+                snap[0]["windows"]) == (None, None, None)
+        return
+    got = got[0][0].view(2, nw, G)
+
+    bits = torch.zeros((G * MASK_GROUP, n), dtype=torch.int64)
+    bits[:B] = (torch.isfinite(prop) & alive[:, None]).cpu()
+    per_vertex = bits.view(G, MASK_GROUP, n).sum(1)           # [G, n]
+    want = torch.zeros((nw, G), dtype=torch.int64)
+    want.index_add_(0, torch.arange(n) // W, per_vertex.T)
+    assert torch.equal(got[0], want)
+    live = torch.zeros(G * MASK_GROUP, dtype=torch.int64)
+    live[:B] = alive.cpu()
+    live = live.view(G, MASK_GROUP).sum(1).tolist()           # [G]
+    gated = torch.tensor([[
+        windowed.gated(live[g], int(want[wd, g])
+                       / (live[g] * min(W, n - wd * W)) if live[g] else 1.0,
+                       lay.gather_gain)
+        for g in range(G)] for wd in range(nw)])
+    assert torch.equal(got[1], gated.to(torch.int64))
+    if kind == "straddle":
+        assert gated.any() and not gated.all()
+    if kind in ("even+p1", "hub+p1"):
+        assert gated.all()
+    assert (snap[0]["mask_bits"], snap[0]["gated_windows"],
+            snap[0]["windows"]) == (int(want.sum()), int(gated.sum()),
+                                    nw * G)
 
 
 @pytest.mark.parametrize("B,K,N", [(1, 1, 1), (3, 5, 7), (64, 130, 250),

@@ -392,6 +392,62 @@ def test_tile_limits_match_kernel_source():
         assert m and int(m.group(1)) == getattr(port_layout, name), name
 
 
+def lattice_ell(side):
+    """A side x side lattice in row order as a pull ELL of width 4."""
+    i = torch.arange(side * side)
+    r, c = i // side, i % side
+    ok = torch.stack([c > 0, c < side - 1, r > 0, r < side - 1], 1)
+    es = torch.where(ok, torch.stack([i - 1, i + 1, i - side, i + side], 1),
+                     0).to(torch.int32)
+    return es, torch.where(ok, 1.0, torch.inf)
+
+
+@pytest.mark.parametrize("graph", ["scattered", "lattice"])
+def test_gather_gain_tells_scattered_from_crowded_sources(graph):
+    """`BucketedEll.gather_gain` is the layout's edges a segment times
+    the distinct 32 B source sectors an edge over its sampled tiles,
+    counted by brute force here; the activity mask pays on a random
+    graph's scattered sources and not on a lattice in row order."""
+    from repro_torch.kernels.ell_relax import windowed
+    if graph == "scattered":
+        gen = torch.Generator().manual_seed(3)
+        n, deg = 120_000, 40
+        es = torch.randint(0, n, (n, deg), generator=gen, dtype=torch.int32)
+        ew = torch.where(torch.rand((n, deg), generator=gen) < 0.4, 1.0,
+                         torch.inf)
+    else:
+        es, ew = lattice_ell(256)
+        n = es.shape[0]
+    lay = sweep_layout(es, ew, bb=4, max_window=n // 3 + 128)
+    s = lay.segments
+    T = s.tile_segs.numel() - 1
+    stride = max(1, T // port_layout._GAIN_SAMPLE_TILES)
+    sectors = edges = 0
+    for t in range(0, T, stride):
+        lo, hi = int(s.tile_edges[t]), int(s.tile_edges[t + 1])
+        sectors += len({int(x) // 8 for x in s.edge_src[lo:hi]})
+        edges += hi - lo
+    want = s.edge_src.numel() / s.seg_row.numel() * sectors / edges
+    assert lay.gather_gain == pytest.approx(want, rel=1e-12)
+    assert windowed.mask_pays(4, lay) == (graph == "scattered")
+    assert not windowed.mask_pays(windowed.GATE_TREES + 1, lay)
+
+
+@pytest.mark.parametrize("name", ["MASK_GROUP", "MASK_COST_PCT",
+                                  "SEGMENT_COST_PCT", "WARP_TREES",
+                                  "GATE_TREES"])
+def test_mask_constants_match_kernel_source(name):
+    """The wrapper's activity-mask group width (the mask plane's rows)
+    and the constants of its gating rule are the kernel's."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels.ell_relax import windowed
+    src = (Path(port_layout.__file__).parent / "csrc"
+           / "ell_relax_windowed.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m and int(m.group(1)) == getattr(windowed, name)
+
+
 @pytest.mark.parametrize("n", [255, 256, 257, 300, 513])
 def test_bucketed_plain_equals_reference(n):
     """The bucketed plain sweep == the reference's bucketed oracle, its

@@ -17,9 +17,13 @@ installed::
   a block mask;
 - recording changes no result: dist, mrank, sweeps, explored and the
   committed labels are bit-identical with and without a profiler;
+- off the windowed kernel's route (the CPU), a sweep reports no
+  activity mask;
 - on the card (``cuda``): no program span reaches the device trace,
   every sweep and check has a positive event time, the rows of a batch
-  add up to its record's sweeps, and the counts equal the recount.
+  add up to its record's sweeps and the counts equal the recount; on a
+  scattered windowed layout each sweep's mask bits are its active pairs
+  and the sparse sweeps take the gated fold.
 """
 
 import math
@@ -27,6 +31,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch.autograd.profiler import emit_nvtx
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tracing
@@ -35,6 +40,7 @@ from repro_torch.engine import (DenseSink, PlantPolicy, fetch_stat_rows,
 from repro_torch.graphs import device_arrays, random_connected
 from repro_torch.graphs.ranking import degree_ranking
 from repro_torch.kernels.ell_relax import ell_sweep_plain, sweep_layout
+from repro_torch.kernels.ell_relax.windowed import mask_pays
 from repro_torch.sssp import batched_sssp_maxrank
 
 torch.set_num_threads(1)
@@ -202,6 +208,20 @@ def test_sweep_counts_equal_a_recount(route):
 
 
 @pytest.mark.parametrize("route", ROUTES)
+def test_cpu_sweeps_report_no_activity_mask(route):
+    """The activity mask is the windowed kernel's: a CPU fixpoint, on
+    the dense and the windowed plain sweep alike, reports its per-sweep
+    fields as absent (None), not as zeros."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        relax_call(route)
+    rows = tracing.snapshot()["sweeps"]
+    assert rows
+    for r in rows:
+        assert (r["mask_bits"], r["gated_windows"], r["windows"]) == (
+            None, None, None)
+
+
+@pytest.mark.parametrize("route", ROUTES)
 def test_recording_changes_no_result(route):
     *_, off = relax_call(route)
     with profile(activities=[ProfilerActivity.CPU]):
@@ -261,3 +281,43 @@ def test_card_recording(cuda_device):
     assert [(r["trees_alive"], r["active_pairs"], r["active_edges"])
             for r in last] == want
     assert {r["edges"] for r in last} == {edges}
+    # no activity mask: the batches ran the dense kernel, and the small
+    # windowed layout's gathers crowd a few sectors (the mask never pays)
+    assert not mask_pays(3, sweep_layout(a.ell_src, a.ell_w, bb=3,
+                                         max_window=128))
+    assert all(r["mask_bits"] is None for r in snap["sweeps"])
+
+
+@pytest.mark.cuda
+def test_card_recording_reads_the_activity_mask(cuda_device):
+    """A fixpoint on the card over a scattered windowed layout (the mask
+    pays) records each sweep's mask: after the first sweep a set bit is
+    an active pair (prop is dist at the frontier, alive its trees), the
+    first sweep's finite sources are the roots, and the early sparse
+    sweeps take the gated fold; the fixpoint equals the CPU's."""
+    gen = torch.Generator().manual_seed(11)
+    n, deg, B = 200_000, 40, 4
+    es = torch.randint(0, n, (n, deg), generator=gen, dtype=torch.int32)
+    ew = torch.where(torch.rand((n, deg), generator=gen) < 0.4,
+                     torch.randint(1, 9, (n, deg), generator=gen).float(),
+                     torch.inf)
+    rank = torch.randperm(n, generator=gen).to(torch.int32)
+    roots = torch.tensor([5, 70_000, 140_000, 199_999])
+    cpu = batched_sssp_maxrank(es, ew, rank, roots)
+    dev = [x.to(cuda_device) for x in (es, ew, rank, roots)]
+    layout = sweep_layout(dev[0], dev[1], bb=B, max_window=n // 3 + 128)
+    assert layout.num_windows == 3 and mask_pays(B, layout)
+    batched_sssp_maxrank(*dev, layout=layout, max_sweeps=4)  # builds
+    torch.cuda.synchronize()
+    tracing.reset()
+    with emit_nvtx():
+        st = batched_sssp_maxrank(*dev, layout=layout)
+        torch.cuda.synchronize()
+    rows = tracing.snapshot()["sweeps"]
+    assert torch.equal(st.dist.cpu(), cpu.dist)
+    assert torch.equal(st.mrank.cpu(), cpu.mrank)
+    assert len(rows) == st.sweeps
+    for r in rows:
+        assert r["mask_bits"] == (r["active_pairs"] if r["sweep"] else B)
+        assert 0 <= r["gated_windows"] <= r["windows"] == 3
+    assert rows[1]["gated_windows"] == 3
