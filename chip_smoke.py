@@ -123,7 +123,9 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    phases 5-7 are made on one host thread beside phases 3h and 3i;
 4. dense block: scale_free(32,768), the top 64 roots through
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
-   minplus kernel), equal to the ELL engine on the card;
+   minplus kernel), equal to the ELL engine on the card (its largest
+   degree, 359, passes the ELL cap, so the engine sweeps its capped
+   ELL and hub tail through the windowed kernel, in one window);
 5. road scale: the chl-road configuration, grid_road(4096, 4096)
    (n = 16,777,216, ELL width 8), one PLaNT superstep of one cluster
    node — 8 unpruned trees in batches of 4, label cap 8 — through the
@@ -2944,8 +2946,8 @@ def phase_entry_points(dev, kernels, exact, side) -> dict:
     io_wall = time.perf_counter() - t0
     for other, what in ((g_gr, "read_dimacs"), (g_npz, "load_npz")):
         require(all(np.array_equal(getattr(other, f), getattr(g, f))
-                    for f in ("ell_src", "ell_w", "ell_dst", "ell_w_out",
-                              "indptr", "indices", "weights")),
+                    for f in ("ell_src", "ell_w", "tail_dst", "tail_src",
+                              "tail_w", "indptr", "indices", "weights")),
                 f"entry points: {what} arrays != the graph's")
     (dim, text), counts = step(
         "chl dimacs", ("ell_relax", "label_query"), quiet, chl.main,

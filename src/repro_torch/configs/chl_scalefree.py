@@ -1,6 +1,12 @@
-"""CHL on a scale-free graph (LiveJournal regime: n ~ 4.8M). ELL width
-64 through degree-capped hub splitting; the Hybrid path (PLaNT -> DGLL
-with common labels) is the representative workload."""
+"""CHL on a scale-free graph (LiveJournal regime: n ~ 4.8M); the Hybrid
+path (PLaNT -> DGLL with common labels) is the representative workload.
+
+The port lays such a graph out as a degree-capped pull ELL: at most
+`repro_torch.graphs.graph.ELL_CAP` (128) columns, a hub's further
+in-edges in a tail of arcs that every sweep route reads (the windowed
+layout folds them into its segments, the plain sweep beside the ELL).
+``max_deg`` here is the ELL width the dry run's closed forms take, not
+the port's cap."""
 
 from repro_torch.configs.chl_common import ChlConfig
 

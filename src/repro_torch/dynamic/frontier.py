@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs.graph import Graph
+from repro_torch.graphs.graph import Graph, device_adjacency
 from repro_torch.sssp.relax import batched_sssp, ell_layout
 
 from .mutations import DELETE, INSERT, REWEIGHT, ResolvedBatch
@@ -72,8 +72,7 @@ def endpoint_planes(g: Graph, roots: Iterable[int], *,
     planes: Dict[int, np.ndarray] = {}
     if len(roots) == 0:
         return planes
-    ell_src = torch.as_tensor(np.asarray(g.ell_src, np.int32), device=dev)
-    ell_w = torch.as_tensor(np.asarray(g.ell_w, np.float32), device=dev)
+    ell_src, ell_w, _ = device_adjacency(g, dev)
     for lo in range(0, len(roots), chunk):
         part = roots[lo:lo + chunk]
         width = _bucket(len(part), chunk)

@@ -42,8 +42,10 @@ class StepOutcome(NamedTuple):
 
 def build_fingerprint(g, rank: np.ndarray) -> str:
     """Stable fingerprint of (graph, hierarchy), as the reference
-    computes it: engine checkpoints carry it, so that a resume never
-    adopts labels committed for another build."""
+    computes it, plus the hub tail of a degree-capped graph (a graph
+    with none fingerprints as in the reference): engine checkpoints
+    carry it, so that a resume never adopts labels committed for
+    another build."""
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(
         np.asarray(rank).astype(np.int64)).tobytes())
@@ -51,6 +53,11 @@ def build_fingerprint(g, rank: np.ndarray) -> str:
         np.asarray(g.ell_src).astype(np.int64)).tobytes())
     h.update(np.ascontiguousarray(
         np.asarray(g.ell_w).astype(np.float64)).tobytes())
+    if g.tail_arcs:
+        for a, dtype in ((g.tail_dst, np.int64), (g.tail_src, np.int64),
+                         (g.tail_w, np.float64)):
+            h.update(np.ascontiguousarray(
+                np.asarray(a).astype(dtype)).tobytes())
     return h.hexdigest()
 
 

@@ -21,7 +21,7 @@ from repro_torch.core.pll import pll_undirected
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import root_batches
 from repro_torch.ft import HeartbeatMonitor, lost_roots
-from repro_torch.graphs import scale_free
+from repro_torch.graphs import device_adjacency, scale_free
 from repro_torch.graphs.ranking import degree_ranking
 
 
@@ -36,8 +36,7 @@ def main(device: DeviceLike = None) -> dict:
     per = queues.shape[1]
     print(f"graph n={g.n}; q={q} nodes × {per} roots each")
 
-    ell_src = torch.as_tensor(g.ell_src, device=dev)
-    ell_w = torch.as_tensor(g.ell_w, device=dev)
+    ell_src, ell_w, _ = device_adjacency(g, dev)
     rank_d = torch.as_tensor(rank.astype(np.int32), device=dev)
     table = lbl.empty(g.n, 128, dev)
     monitor = HeartbeatMonitor(q, patience=2)

@@ -1,9 +1,15 @@
 """Core graph container (host numpy) and its move onto a device.
 
-The relaxation engine's unit of work is a padded pull-ELL layout
-(``[n, max_deg]`` in-edge source / weight matrices); CSR out-edges are
-kept beside it for the Dijkstra oracles and the rankings. The arrays
-are byte-identical to the reference package's for the same inputs.
+The relaxation engine's unit of work is a degree-capped pull-ELL layout
+(``[n, width]`` in-edge source / weight matrices, ``width`` the largest
+in-degree up to `ELL_CAP`) with a hub tail beside it: a vertex's
+in-edges past the cap, as arcs sorted by destination, in the order the
+uncapped row would list them. CSR out-edges are kept beside it for the
+Dijkstra oracles and the rankings. A graph whose largest in-degree is
+at most the cap has an empty tail, and its arrays are byte-identical to
+the reference package's for the same inputs; a wider one's ELL is the
+first `ELL_CAP` columns of the reference's and its tail the rest
+(`cap_ell`).
 
 Conventions
 -----------
@@ -16,29 +22,39 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ell_relax.tail import EllTail, attach
 
 INF = np.float32(np.inf)
+
+#: the pull ELL's widest row: a vertex's in-edges past this many go to
+#: the graph's tail, so a heavy-tailed graph's ELL stays ``[n, ELL_CAP]``
+#: (GAP's kron at scale 22, largest degree 162,809, would pad to 5.5 TB).
+#: At least 72, so GAP's urand at scale 22 (ELL width 72) keeps its
+#: arrays; a multiple of the ELL's padding of 8
+ELL_CAP = 128
 
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """A weighted graph in ELL + CSR form (host-resident numpy arrays)."""
+    """A weighted graph in capped ELL + tail + CSR form (host-resident
+    numpy arrays)."""
 
     n: int
     m: int                      # number of directed arcs stored
     directed: bool
     # --- ELL (pull direction: in-edges of each vertex) ---
-    ell_src: np.ndarray         # int32 [n, max_deg]: source of in-edge
-    ell_w: np.ndarray           # float32 [n, max_deg]: weight, inf-padded
-    # --- ELL (push direction: out-edges) ---
-    ell_dst: np.ndarray         # int32 [n, max_deg_out]
-    ell_w_out: np.ndarray       # float32 [n, max_deg_out]
+    ell_src: np.ndarray         # int32 [n, width]: source of in-edge
+    ell_w: np.ndarray           # float32 [n, width]: weight, inf-padded
+    # --- the tail: in-edges past the ELL's ELL_CAP columns ---
+    tail_dst: np.ndarray        # int32 [T]: destination, ascending
+    tail_src: np.ndarray        # int32 [T]
+    tail_w: np.ndarray          # float32 [T]
     # --- CSR (out-edges) ---
     indptr: np.ndarray          # int64 [n+1]
     indices: np.ndarray         # int32 [m]
@@ -46,11 +62,12 @@ class Graph:
 
     @property
     def max_deg_in(self) -> int:
+        """The ELL's width (the largest in-degree, capped, padded)."""
         return int(self.ell_src.shape[1])
 
     @property
-    def max_deg_out(self) -> int:
-        return int(self.ell_dst.shape[1])
+    def tail_arcs(self) -> int:
+        return int(self.tail_dst.shape[0])
 
     def out_edges(self, v: int) -> Tuple[np.ndarray, np.ndarray]:
         lo, hi = self.indptr[v], self.indptr[v + 1]
@@ -67,23 +84,57 @@ class Graph:
                           directed=True)
 
 
+Tail = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def _empty_tail() -> Tail:
+    return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+            np.zeros(0, np.float32))
+
+
 def _build_ell(n: int, heads: np.ndarray, tails: np.ndarray,
                w: np.ndarray, pad_to_multiple: int = 8
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """ELL arrays keyed by ``heads``: row v lists (tails, w) of its edges."""
+               ) -> Tuple[np.ndarray, np.ndarray, Tail]:
+    """Capped ELL arrays keyed by ``heads``: row v lists (tails, w) of
+    its first `ELL_CAP` edges; the rest form the tail ``(heads, tails,
+    w)``, sorted by head, each head's edges in row order."""
     order = np.argsort(heads, kind="stable")
     heads, tails, w = heads[order], tails[order], w[order]
     deg = np.bincount(heads, minlength=n)
     max_deg = int(deg.max()) if len(heads) else 1
-    max_deg = max(1, -(-max_deg // pad_to_multiple) * pad_to_multiple)
-    ell_ids = np.zeros((n, max_deg), dtype=np.int32)
-    ell_w = np.full((n, max_deg), INF, dtype=np.float32)
+    width = max(1, -(-min(max_deg, ELL_CAP) // pad_to_multiple)
+                * pad_to_multiple)
+    ell_ids = np.zeros((n, width), dtype=np.int32)
+    ell_w = np.full((n, width), INF, dtype=np.float32)
     starts = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(deg, out=starts[1:])
     pos = np.arange(len(heads), dtype=np.int64) - starts[heads]
+    tail = _empty_tail()
+    if max_deg > width:
+        past = pos >= width
+        tail = (heads[past], tails[past], w[past])
+        keep = ~past
+        heads, tails, w, pos = heads[keep], tails[keep], w[keep], pos[keep]
     ell_ids[heads, pos] = tails
     ell_w[heads, pos] = w
-    return ell_ids, ell_w
+    return ell_ids, ell_w, tail
+
+
+def cap_ell(ell_src: np.ndarray, ell_w: np.ndarray
+            ) -> Tuple[np.ndarray, np.ndarray, Tail]:
+    """A pull ELL padded to its largest in-degree (the reference
+    package's) capped as `from_edges` caps it: ``(ell_src, ell_w,
+    (tail_dst, tail_src, tail_w))``."""
+    ell_src = np.asarray(ell_src, np.int32)
+    ell_w = np.asarray(ell_w, np.float32)
+    if ell_src.shape[1] <= ELL_CAP:
+        return ell_src, ell_w, _empty_tail()
+    rest_s, rest_w = ell_src[:, ELL_CAP:], ell_w[:, ELL_CAP:]
+    # nonzero lists the entries row-major: by destination, in row order
+    rows, cols = np.nonzero(np.isfinite(rest_w))
+    return (np.ascontiguousarray(ell_src[:, :ELL_CAP]),
+            np.ascontiguousarray(ell_w[:, :ELL_CAP]),
+            (rows.astype(np.int32), rest_s[rows, cols], rest_w[rows, cols]))
 
 
 #: bits of a weight in the packed arc sort key of `_arc_order`
@@ -132,11 +183,11 @@ def from_edges(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     s, d, ww = src[order], dst[order], w[order]
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(s, minlength=n), out=indptr[1:])
-    ell_dst, ell_w_out = _build_ell(n, src, dst, w)
-    ell_src, ell_w = _build_ell(n, dst, src, w)   # in-edges keyed by head
+    # in-edges keyed by head
+    ell_src, ell_w, (t_dst, t_src, t_w) = _build_ell(n, dst, src, w)
     return Graph(n=n, m=m, directed=directed,
                  ell_src=ell_src, ell_w=ell_w,
-                 ell_dst=ell_dst, ell_w_out=ell_w_out,
+                 tail_dst=t_dst, tail_src=t_src, tail_w=t_w,
                  indptr=indptr, indices=d, weights=ww)
 
 
@@ -157,16 +208,40 @@ class DeviceGraph(NamedTuple):
     ell_src: torch.Tensor    # int32 [n, deg]
     ell_w: torch.Tensor      # f32   [n, deg], +inf padding
     rank: torch.Tensor       # int32 [n]
+    tail: Optional[EllTail] = None   # bound to (ell_src, ell_w)
+
+
+def device_adjacency(g: Graph, device: DeviceLike = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[EllTail]]:
+    """The pull-ELL adjacency on ``device`` (default: the card; raises
+    without CUDA): ``(ell_src, ell_w, tail)``, the tail (None for an
+    empty one) bound to the two ELL tensors, where every sweep entry
+    point finds it (`kernels.ell_relax.tail`)."""
+    dev = resolve_device(device)
+    ell_src = torch.as_tensor(np.asarray(g.ell_src, np.int32), device=dev)
+    ell_w = torch.as_tensor(np.asarray(g.ell_w, np.float32), device=dev)
+    tail = None
+    if g.tail_arcs:
+        tail = EllTail(
+            dst=torch.as_tensor(np.asarray(g.tail_dst, np.int32),
+                                device=dev),
+            src=torch.as_tensor(np.asarray(g.tail_src, np.int32),
+                                device=dev),
+            w=torch.as_tensor(np.asarray(g.tail_w, np.float32),
+                              device=dev))
+        attach(ell_src, ell_w, tail)
+    return ell_src, ell_w, tail
 
 
 def device_arrays(g: Graph, rank: np.ndarray,
                   device: DeviceLike = None) -> DeviceGraph:
-    """Move the pull-ELL adjacency and the rank onto ``device``
-    (default: the card; raises without CUDA)."""
+    """Move the pull-ELL adjacency, its tail and the rank onto
+    ``device`` (default: the card; raises without CUDA)."""
     dev = resolve_device(device)
+    ell_src, ell_w, tail = device_adjacency(g, dev)
     return DeviceGraph(
-        ell_src=torch.as_tensor(np.asarray(g.ell_src, np.int32),
-                                device=dev),
-        ell_w=torch.as_tensor(np.asarray(g.ell_w, np.float32), device=dev),
+        ell_src=ell_src, ell_w=ell_w,
         rank=torch.as_tensor(np.asarray(rank).astype(np.int32),
-                             device=dev))
+                             device=dev),
+        tail=tail)

@@ -18,14 +18,23 @@ import torch
 
 from repro_torch.core.labels import LabelTable
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs.graph import Graph
+from repro_torch.graphs.graph import Graph, cap_ell
 
 
 def graph(source) -> Graph:
     """A port `Graph` from any object carrying the same fields (host
-    numpy arrays), e.g. the reference package's graph."""
-    return Graph(**{f.name: getattr(source, f.name)
-                    for f in dataclasses.fields(Graph)})
+    numpy arrays). A source without a tail, e.g. the reference package's
+    graph, whose ELL is padded to its largest in-degree, is capped as
+    `graphs.from_edges` caps it (`graphs.cap_ell`)."""
+    if hasattr(source, "tail_dst"):
+        return Graph(**{f.name: getattr(source, f.name)
+                        for f in dataclasses.fields(Graph)})
+    ell_src, ell_w, (t_dst, t_src, t_w) = cap_ell(source.ell_src,
+                                                  source.ell_w)
+    return Graph(n=source.n, m=source.m, directed=source.directed,
+                 ell_src=ell_src, ell_w=ell_w, tail_dst=t_dst,
+                 tail_src=t_src, tail_w=t_w, indptr=source.indptr,
+                 indices=source.indices, weights=source.weights)
 
 
 def _owned(x, dtype) -> np.ndarray:

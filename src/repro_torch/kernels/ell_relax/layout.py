@@ -19,8 +19,9 @@ built there; tests force windows either with `window_plan`'s and
 reference's tests set its VMEM budget.
 
 :func:`build_bucketed_ell` builds the CUDA kernel's window-major layout
-(:class:`WindowSegments`): the finite in-edges sorted by (source
-window, destination), with no padding, cut into *tiles* of consecutive
+(:class:`WindowSegments`): the finite in-edges, the ELL's and its hub
+tail's (`tail.tail_of`), sorted by (source window, destination), with no
+padding, cut into *tiles* of consecutive
 segments of one window that one block of the kernel stages in shared
 memory (at most `TILE_SEGS` segments and `TILE_EDGES` edges, or one
 longer segment alone). The reference package's
@@ -38,7 +39,11 @@ that over exact floats, and dropped ``+inf``-weight padding edges fold
 as the identity.
 
 Everything is built with torch on the adjacency's own device, once per
-graph: `sweep_layout` caches by tensor identity.
+graph: `sweep_layout` caches by tensor identity. On the card a tailed
+adjacency gets a layout even where one window covers it, since the
+dense kernel reads the ELL alone. `BucketedEll.counters` holds the
+layout's counts of the tail and of the tiles too long to stage
+(`repro_torch.tracing` hands them to each sweep row).
 
 `BucketedEll.gather_gain` measures how much the windowed kernel's prop
 gathers cost on this layout, for its activity mask (``windowed.py``):
@@ -56,6 +61,8 @@ from collections import OrderedDict
 from typing import List, NamedTuple, Optional
 
 import torch
+
+from repro_torch.kernels.ell_relax.tail import tail_of
 
 #: bytes per vertex and tree of the two staged source planes
 #: (f32 prop + i32 mrank)
@@ -142,10 +149,12 @@ class WindowSegments(NamedTuple):
 
     A *segment* is the run of one destination's edges inside one
     window. Window ``wd`` owns segments ``win_segs[wd]`` to
-    ``win_segs[wd + 1]``; in each, destinations ascend. A *tile* is a
-    run of consecutive segments of one window, cut greedily: it takes
-    segments while it holds at most `TILE_SEGS` of them and
-    `TILE_EDGES` edges; a segment longer than that is a tile alone.
+    ``win_segs[wd + 1]``; in each, the segments longer than
+    `TILE_EDGES` come first, longest first, then the rest by ascending
+    destination. A *tile* is a run of consecutive segments of one
+    window, cut greedily: it takes segments while it holds at most
+    `TILE_SEGS` of them and `TILE_EDGES` edges; a segment longer than
+    that is a tile alone (a *lone tile*).
     Tile ``t`` owns segments ``tile_segs[t]`` to ``tile_segs[t + 1]``
     and edges ``tile_edges[t]`` to ``tile_edges[t + 1]``; window ``wd``
     owns tiles ``win_tiles[wd]`` to ``win_tiles[wd + 1]``.
@@ -180,12 +189,19 @@ class BucketedEll:
     ``src``, ``w``, ``chunk_win``, ``dk`` and ``num_chunks`` (the
     reference's format) are built from the segments on first access, and
     so is ``gather_gain`` (module docstring).
+
+    ``counters`` (`layout_counters`): ``tail_arcs`` and ``split_rows``
+    (the hub tail's arcs and its distinct destinations), ``lone_tiles``
+    and ``lone_tile_edges`` (the tiles of one segment longer than
+    `TILE_EDGES`, which a block folds from device memory, and their
+    edges) and ``longest_segment`` (edges).
     """
 
     def __init__(self, segments: WindowSegments, *, n: int, deg: int,
                  window: int, num_windows: int, n_pad: int, bn: int,
-                 dk_max: int):
+                 dk_max: int, counters: dict):
         self.segments = segments
+        self.counters = counters
         self.n = n
         self.deg = deg
         self.window = window
@@ -226,11 +242,13 @@ class BucketedEll:
 
 def _segments(rows, srcs, ws, wins, n: int, nw: int) -> WindowSegments:
     """Sort the finite edges by (window, destination) into segments;
-    a stable sort keeps each segment's edges in ELL column order."""
+    a stable sort keeps each segment's edges in ELL column order. Then
+    each window's lone segments (`_lone_first`) move to its front."""
     dev = rows.device
     sorted_keys, order = torch.sort(wins * n + rows, stable=True)
     keys, counts = torch.unique_consecutive(sorted_keys,
                                             return_counts=True)
+    keys, counts, order = _lone_first(keys, counts, order, n)
     seg_row = keys % n
     seg_win = keys // n
     lo = torch.full((n,), nw, dtype=torch.int64, device=dev)
@@ -251,6 +269,33 @@ def _segments(rows, srcs, ws, wins, n: int, nw: int) -> WindowSegments:
         bare_rows=torch.nonzero(hi < 0).flatten().to(torch.int32),
         win_segs=win_segs, seg_end=seg_end, tile_segs=tile_segs,
         tile_edges=tile_edges, win_tiles=win_tiles)
+
+
+def _lone_first(keys, counts, order, n: int):
+    """Segments (``keys`` = window * n + destination, their edge
+    ``counts``, and ``order``, the edges segment by segment) with each
+    window's segments longer than `TILE_EDGES` first, longest first.
+
+    A lone tile is folded serially by one block from device memory, and
+    the rows a window leaves partial make the next window's pass wait
+    for this one to end, so a lone tile is the long pole of its
+    window's pass: at the front, its block starts with the pass,
+    wherever the vertex numbering puts its row. A layout without lone
+    segments keeps its order."""
+    lone = counts > TILE_EDGES
+    if not bool(lone.any()):
+        return keys, counts, order
+    top = int(counts.max()) + 1
+    # within a window: lone segments by descending length, then the
+    # rest, whose equal keys the stable sort keeps in destination order
+    rank = torch.where(lone, top - 1 - counts, top)
+    _, perm = torch.sort(keys // n * (top + 1) + rank, stable=True)
+    starts = (torch.cumsum(counts, 0) - counts)[perm]
+    counts = counts[perm]
+    shift = starts - (torch.cumsum(counts, 0) - counts)
+    edge = torch.arange(order.numel(), device=order.device) \
+        + torch.repeat_interleave(shift, counts)
+    return keys[perm], counts, order[edge]
 
 
 def _tiles(ptr: torch.Tensor, seg_win: torch.Tensor, win_segs: List[int]):
@@ -353,26 +398,60 @@ def _pad_buckets(seg: WindowSegments, plan: WindowPlan, *, bn: int,
     return src_b, w_b, chunk_win.to(torch.int32), dk, num_chunks
 
 
+def tail_counters(tail) -> dict:
+    """The hub tail's ``tail_arcs`` and ``split_rows`` (its distinct
+    destinations) for an `EllTail` or None."""
+    if tail is None:
+        return {"tail_arcs": 0, "split_rows": 0}
+    return {"tail_arcs": int(tail.dst.numel()),
+            "split_rows": int(torch.unique_consecutive(tail.dst).numel())}
+
+
+def layout_counters(seg: WindowSegments, tail=None) -> dict:
+    """`BucketedEll.counters` of these segments, built with ``tail``
+    (an `EllTail` or None)."""
+    ne = seg.tile_edges.diff()
+    lone = ne > TILE_EDGES
+    lengths = seg.seg_ptr.diff()
+    return {**tail_counters(tail),
+            "lone_tiles": int(lone.sum()),
+            "lone_tile_edges": int(ne[lone].sum()),
+            "longest_segment": int(lengths.max()) if lengths.numel() else 0}
+
+
 def build_bucketed_ell(ell_src: torch.Tensor, ell_w: torch.Tensor,
                        plan: WindowPlan, *, bn: int = 128,
                        dk_max: int = 128) -> BucketedEll:
-    """Bucket a pull ELL by source window, on the adjacency's device.
-    ``+inf``-weight padding edges are dropped."""
+    """Bucket a pull ELL and its hub tail by source window, on the
+    adjacency's device. ``+inf``-weight padding edges are dropped."""
     src = ell_src.to(torch.int64)
     w = ell_w.to(torch.float32)
     n, deg = src.shape
     W, nw, n_pad = plan
-    # nonzero lists edges row-major, so each segment keeps column order
+    # nonzero lists edges row-major, and the tail follows the ELL, so
+    # each segment keeps its row's order: ELL columns, then the tail
     rows, cols = torch.nonzero(torch.isfinite(w), as_tuple=True)
-    srcs = src[rows, cols]
-    return BucketedEll(_segments(rows, srcs, w[rows, cols], srcs // W, n,
-                                 nw),
-                       n=n, deg=deg, window=W, num_windows=nw,
-                       n_pad=n_pad, bn=bn, dk_max=dk_max)
+    srcs, ws = src[rows, cols], w[rows, cols]
+    del src, w, cols
+    tail = tail_of(ell_src, ell_w)
+    if tail is not None:
+        rows = torch.cat([rows, tail.dst.to(torch.int64)])
+        srcs = torch.cat([srcs, tail.src.to(torch.int64)])
+        ws = torch.cat([ws, tail.w.to(torch.float32)])
+    seg = _segments(rows, srcs, ws, srcs // W, n, nw)
+    return BucketedEll(seg, n=n, deg=deg, window=W, num_windows=nw,
+                       n_pad=n_pad, bn=bn, dk_max=dk_max,
+                       counters=layout_counters(seg, tail))
 
 
 _CACHE_MAX = 4
 _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _no_ref():
+    """The reference a cache entry keeps where the adjacency has no
+    tail."""
+    return None
 
 
 def clear_layout_cache() -> None:
@@ -383,28 +462,33 @@ def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
                  bn: int = 128, max_window: Optional[int] = None,
                  dk_max: int = 128) -> Optional[BucketedEll]:
     """The bucketed layout a sweep over this adjacency runs, relaxing
-    ``bb`` trees at a time; None when one window covers it (the dense
-    kernel) or when it lies on the CPU and no ``max_window`` forces
-    windows.
+    ``bb`` trees at a time; None when one window covers an adjacency
+    with no hub tail (the dense kernel) or when it lies on the CPU and
+    no ``max_window`` forces windows. On the card a tailed adjacency
+    always gets one, the dense kernel reading the ELL alone.
 
-    Cached by adjacency identity (id-keyed, weakref-validated, small
-    LRU): drivers and policies call it once per graph.
+    Cached by adjacency and tail identity (id-keyed, weakref-validated,
+    small LRU): drivers and policies call it once per graph.
     """
     n = int(ell_src.shape[0])
     plan = (layout_plan(n, ell_src.device, bb=bb) if max_window is None
             else window_plan(n, bb=bb, bn=bn, max_window=max_window))
-    if plan is None or plan.num_windows <= 1:
+    tail = tail_of(ell_src, ell_w)
+    if plan is None or (plan.num_windows <= 1 and (
+            tail is None or ell_src.device.type != "cuda")):
         return None
-    key = (id(ell_src), id(ell_w), plan, bn, dk_max)
+    anchors = (ell_src, ell_w, None if tail is None else tail.dst)
+    key = tuple(map(id, anchors)) + (plan, bn, dk_max)
     hit = _cache.get(key)
     if hit is not None:
-        ref_s, ref_w, layout = hit
-        if ref_s() is ell_src and ref_w() is ell_w:
+        refs, layout = hit
+        if all(r() is a for r, a in zip(refs, anchors)):
             _cache.move_to_end(key)
             return layout
         del _cache[key]                        # id reused by a new tensor
     layout = build_bucketed_ell(ell_src, ell_w, plan, bn=bn, dk_max=dk_max)
-    _cache[key] = (weakref.ref(ell_src), weakref.ref(ell_w), layout)
+    _cache[key] = (tuple(_no_ref if a is None else weakref.ref(a)
+                         for a in anchors), layout)
     while len(_cache) > _CACHE_MAX:
         _cache.popitem(last=False)
     return layout

@@ -6,12 +6,13 @@ sweep as ``layout``; `ell_sweep` does not decide again. Routes, with no
 fallback from one to another:
 
 - a CUDA tensor with a layout: the source-windowed kernel
-  (`windowed.ell_relax_windowed`);
+  (`windowed.ell_relax_windowed`), whose layout holds the adjacency's
+  hub tail too;
 - a CUDA tensor without one (the batch's two source planes fit half
-  the card's L2): the dense kernel (`ell_relax.ell_relax`), which
-  handles any B, n and deg itself;
+  the card's L2, and the adjacency has no hub tail): the dense kernel
+  (`ell_relax.ell_relax`), which handles any B, n and deg itself;
 - a CPU tensor: the plain version (`ref.ell_sweep_bucketed_plain` with
-  a layout, else `ref.ell_sweep_plain`).
+  a layout, else `ref.ell_sweep_plain`, which folds the tail).
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ def resolve_sweep_backend(ell_src, ell_w, batch: int, *,
                           ) -> Optional[BucketedEll]:
     """The layout sweeps of ``batch`` trees over this adjacency run on,
     or None for the dense route (kernel or plain by device). A given
-    multi-window ``layout`` wins; otherwise the card's L2 decides (the
-    CPU has none, so it gets no layout)."""
+    multi-window ``layout`` wins; otherwise the card's L2 and the
+    adjacency's hub tail decide (`sweep_layout`; the CPU has no L2, so
+    it gets no layout)."""
     if layout is not None and layout.num_windows > 1:
         return layout
     return sweep_layout(ell_src, ell_w, bb=batch)

@@ -4,31 +4,48 @@
 caller passes ``prop = where(blocked | ~frontier, +inf, dist)`` and
 ``+inf`` sources contribute no candidates. ``ell_sweep_plain`` adds the
 kernel's per-tree retirement: trees with ``alive == False`` pass
-through unchanged; ``ell_sweep_bucketed_plain`` is the same function
-over a source-bucketed layout, the windowed kernel's plain version.
+through unchanged, and folds the adjacency's hub tail
+(`tail.tail_of`) beside the ELL; ``ell_sweep_bucketed_plain`` is the
+same function over a source-bucketed layout, the windowed kernel's
+plain version.
 They run on any device; the CPU path of `ops.ell_sweep` and the
 card-side parity checks both call them.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.kernels.ell_relax.tail import EllTail, tail_of
 
 
 def ell_sweep_ref(dist: torch.Tensor, mrank: torch.Tensor,
                   prop: torch.Tensor, prop_mrank: torch.Tensor,
                   ell_src: torch.Tensor, ell_w: torch.Tensor,
-                  rank: torch.Tensor):
+                  rank: torch.Tensor, tail: Optional[EllTail] = None):
     """One relaxation sweep. dist/mrank/prop/prop_mrank [B, n];
-    ell_* [n, deg]; rank [n]. Returns (new_dist, new_mrank)."""
+    ell_* [n, deg]; rank [n]; ``tail``: in-edges beside the ELL's,
+    folded into the same (min, max-at-min) per destination. Returns
+    (new_dist, new_mrank)."""
     idx = ell_src.long()
     nd = prop[:, idx]                           # [B, n, deg]
     nm = prop_mrank[:, idx]
     cand = nd + ell_w[None, :, :]
     best = cand.amin(dim=-1)                    # [B, n]
+    if tail is not None:
+        dst = tail.dst.long().expand(dist.shape[0], -1)
+        t_src = tail.src.long()
+        t_cand = prop[:, t_src] + tail.w[None, :]
+        best = best.scatter_reduce(1, dst, t_cand, "amin")
     new_dist = torch.minimum(dist, best)
     attains = (cand <= new_dist[..., None]) & torch.isfinite(cand)
     best_in = torch.where(attains, nm, -1).amax(dim=-1)
+    if tail is not None:
+        t_att = (t_cand <= new_dist.gather(1, dst)) & torch.isfinite(t_cand)
+        best_in = best_in.scatter_reduce(
+            1, dst, torch.where(t_att, prop_mrank[:, t_src], -1), "amax")
     through = torch.where(best_in >= 0,
                           torch.maximum(best_in, rank[None, :]), -1)
     keep = torch.where(dist <= new_dist, mrank, -1)
@@ -36,9 +53,11 @@ def ell_sweep_ref(dist: torch.Tensor, mrank: torch.Tensor,
 
 
 def ell_sweep_plain(dist, mrank, prop, alive, ell_src, ell_w, rank):
-    """`ell_sweep_ref` with ``prop_mrank = mrank`` and retired trees
-    (``alive[b] == False``) copied through — the kernel's function."""
-    nd, nm = ell_sweep_ref(dist, mrank, prop, mrank, ell_src, ell_w, rank)
+    """`ell_sweep_ref` with ``prop_mrank = mrank``, the adjacency's tail
+    and retired trees (``alive[b] == False``) copied through — the
+    kernel's function."""
+    nd, nm = ell_sweep_ref(dist, mrank, prop, mrank, ell_src, ell_w, rank,
+                           tail_of(ell_src, ell_w))
     a = alive[:, None]
     return torch.where(a, nd, dist), torch.where(a, nm, mrank)
 

@@ -34,7 +34,14 @@ How to read it::
   (trees with a nonempty set), ``active_pairs`` (its (tree, vertex)
   pairs), ``active_edges`` (the sum of those sources' finite
   out-degrees: the (tree, edge) folds that can change a value), and
-  ``edges`` (the adjacency's finite arcs); where the windowed kernel
+  ``edges`` (the adjacency's finite arcs, its hub tail's included);
+  the layout's counters (`kernels.ell_relax.layout.BucketedEll.counters`):
+  ``tail_arcs`` and ``split_rows`` (the hub tail's arcs and
+  destinations), ``lone_tiles`` and ``lone_tile_edges`` (the tiles the
+  windowed kernel folds from device memory, one segment longer than it
+  stages, and their edges) and ``longest_segment`` (with no layout:
+  the tail's two counted from the tail, no lone tile, and
+  ``longest_segment`` None); where the windowed kernel
   packed its activity mask (`kernels.ell_relax.windowed.mask_pays`):
   ``mask_bits`` (the set bits: (live tree, source) pairs whose prop is
   finite), ``gated_windows`` (the (window, tree group) pairs that took
@@ -72,6 +79,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.autograd.profiler as _profiler
 
+from repro_torch.kernels.ell_relax.layout import tail_counters
+from repro_torch.kernels.ell_relax.tail import tail_of
+
 #: adjacencies whose out-degrees are kept (as the sweep layouts are)
 _DEGREE_CACHE_MAX = 4
 #: sweeps a device buffer of per-sweep counts holds
@@ -81,6 +91,8 @@ _PAIR = 1 << 32
 #: a sweep's activity-mask fields, None where no mask was packed
 _MASK_FIELDS = ("mask_bits", "gated_windows", "windows")
 _NO_MASK = (None, None, None)
+#: the tile counters of a sweep that runs no layout
+_NO_TILES = {"lone_tiles": 0, "lone_tile_edges": 0, "longest_segment": None}
 
 
 def active() -> bool:
@@ -163,14 +175,15 @@ class SweepRows:
     active source adds ``2**32 + out-degree``, so the sum holds the
     tree's active pairs above bit 32 and their out-edges below."""
 
-    __slots__ = ("rec", "device", "packed", "edges", "call", "parent",
-                 "batch", "pos", "sweeps", "events", "chunks", "device_ms",
-                 "counts", "mask_chunks", "masks")
+    __slots__ = ("rec", "device", "packed", "edges", "counters", "call",
+                 "parent", "batch", "pos", "sweeps", "events", "chunks",
+                 "device_ms", "counts", "mask_chunks", "masks")
 
     def __init__(self, rec: "Recorder", device, packed: torch.Tensor,
-                 edges: int):
+                 edges: int, counters: dict):
         self.rec = rec
         self.device, self.packed, self.edges = device, packed, edges
+        self.counters = counters
         self.call = len(rec._sweep_calls)
         self.parent = rec._stack[-1] if rec._stack else None
         up = rec._spans[self.parent] if self.parent is not None else None
@@ -244,7 +257,9 @@ class Recorder:
         if not _profiler._is_profiler_enabled:
             return None
         packed, edges = self._out_degree(ell_src, ell_w, layout)
-        rows = SweepRows(self, ell_src.device, packed, edges)
+        counters = (layout.counters if layout is not None else
+                    {**tail_counters(tail_of(ell_src, ell_w)), **_NO_TILES})
+        rows = SweepRows(self, ell_src.device, packed, edges, counters)
         self._sweep_calls.append(rows)
         return rows
 
@@ -259,7 +274,8 @@ class Recorder:
                                                           int]:
         """i64 [n] ``2**32 + finite out-degree`` (the term `SweepRows`
         sums) and the finite arc count, counted from the finite
-        in-edges' sources once per adjacency."""
+        in-edges' sources (the hub tail's included) once per
+        adjacency."""
         key = (id(ell_src), id(ell_w))
         hit = self._degrees.get(key)
         if hit is not None:
@@ -268,8 +284,13 @@ class Recorder:
                 self._degrees.move_to_end(key)
                 return packed, edges
             del self._degrees[key]              # id reused by a new tensor
-        src = (layout.segments.edge_src if layout is not None
-               else ell_src[torch.isfinite(ell_w)])
+        if layout is not None:
+            src = layout.segments.edge_src
+        else:
+            src = ell_src[torch.isfinite(ell_w)]
+            tail = tail_of(ell_src, ell_w)
+            if tail is not None:
+                src = torch.cat([src, tail.src])
         edges = int(src.shape[0])
         if edges >= _PAIR:
             raise ValueError(f"tracing: {edges} arcs do not fit the low "
@@ -333,7 +354,7 @@ class Recorder:
                    "batch": c.batch, "pos": c.pos,
                    "device_ms": c.device_ms[i], "trees_alive": alive,
                    "active_pairs": pairs, "active_edges": edges,
-                   "edges": c.edges,
+                   "edges": c.edges, **c.counters,
                    **dict(zip(_MASK_FIELDS, c.masks[i] or _NO_MASK))}
                   for c in self._sweep_calls
                   for i, (alive, pairs, edges) in enumerate(c.counts)]

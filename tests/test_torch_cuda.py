@@ -8,6 +8,10 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   shapes (the windowed sweep at 2 to 7 forced windows, B not a
   multiple of a block's trees, a hub row longer than a tile's edge
   buffer, an empty window, retired trees);
+- over a degree-capped adjacency with a hub tail (and lone tiles) the
+  windowed kernel equals the plain sweep that folds the tail; such an
+  adjacency sweeps the windowed kernel even in one window, the dense
+  kernel refuses it, and its PLaNT build equals the CPU's;
 - a PLaNT build on the card (kernel path: gated sweeps, stride 4)
   gives the same label table and answers as the CPU build (plain path:
   ungated, stride 1), and its main path launches the dense sweep and
@@ -355,6 +359,84 @@ def test_windowed_build_on_card_equals_cpu_build(cuda_device, monkeypatch):
                for x in card.report.notes)
     for a, b in zip(card.table, cpu.table):
         assert torch.equal(a.cpu(), b)
+
+
+def tailed_graph(n: int, attach: int = 2, seed: int = 0):
+    """A scale-free graph whose hubs pass the ELL cap, plus a star from
+    vertex 0 to every other: its in-edges past the cap go to the hub
+    tail, and in two windows of n / 2 each half is a lone tile."""
+    from repro_torch.graphs import from_edges
+    g = scale_free(n, attach=attach, seed=seed)
+    src = np.repeat(np.arange(n, dtype=np.int32), np.diff(g.indptr))
+    star = np.arange(1, n, dtype=np.int32)
+    return from_edges(n, np.concatenate([src, np.zeros(n - 1, np.int32)]),
+                      np.concatenate([g.indices, star]),
+                      np.concatenate([g.weights,
+                                      np.full(n - 1, 7, np.float32)]))
+
+
+@pytest.mark.parametrize("B,density", [(4, 0.01), (4, 0.7), (13, 0.3)])
+def test_ell_relax_windowed_on_a_tailed_layout_equals_plain(
+        cuda_device, B, density):
+    """The windowed kernel over a layout of ELL + hub tail, with lone
+    tiles, gated (sparse, B = 4) and ungated, equals the plain sweep
+    that folds the tail beside the ELL, bit for bit."""
+    from repro_torch.graphs import device_arrays
+    n = 8192
+    g = tailed_graph(n)
+    a = device_arrays(g, degree_ranking(g), cuda_device)
+    assert a.tail is not None and g.max_deg_in == 128
+    lay = sweep_layout(a.ell_src, a.ell_w, bb=B, max_window=n // 2)
+    assert lay.num_windows == 2
+    assert lay.counters["lone_tiles"] >= 2
+    assert lay.counters["tail_arcs"] == g.tail_arcs
+    rng = np.random.default_rng(B)
+    finite = rng.random((B, n)) < density
+    dist = np.where(finite, rng.integers(0, 9, (B, n)),
+                    np.inf).astype(np.float32)
+    mrank = np.where(finite, rng.integers(0, n, (B, n)), -1).astype(
+        np.int32)
+    alive = np.ones(B, dtype=bool)
+    alive[-1] = False
+    dist, mrank, alive = (torch.as_tensor(x, device=cuda_device)
+                          for x in (dist, mrank, alive))
+    kd, km = ell_relax_windowed(dist, mrank, dist, alive, lay, a.rank)
+    pd, pm = ell_sweep_plain(dist, mrank, dist, alive, a.ell_src, a.ell_w,
+                             a.rank)
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+
+
+def test_tailed_adjacency_runs_windowed_on_the_card(cuda_device):
+    """A tailed graph that one window covers still sweeps the windowed
+    kernel on the card (the dense kernel reads the ELL alone and
+    refuses it) and relaxes to the CPU's fixpoint; its PLaNT build
+    equals the CPU build."""
+    from repro_torch.graphs import device_arrays
+    g = tailed_graph(3000, seed=3)
+    rank = degree_ranking(g)
+    a = device_arrays(g, rank, cuda_device)
+    c = device_arrays(g, rank, "cpu")
+    roots = np.argsort(-rank)[:8]
+    with pytest.raises(ValueError, match="hub tail"):
+        ell_relax(*(torch.zeros((2, g.n), device=cuda_device),
+                    torch.zeros((2, g.n), dtype=torch.int32,
+                                device=cuda_device),
+                    torch.zeros((2, g.n), device=cuda_device),
+                    torch.ones(2, dtype=torch.bool, device=cuda_device)),
+                  a.ell_src, a.ell_w, a.rank)
+    ELL_RELAX.launches = WINDOWED_KERNEL.launches = 0
+    st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank,
+                              torch.as_tensor(roots, device=cuda_device))
+    assert WINDOWED_KERNEL.launches > 0 and ELL_RELAX.launches == 0
+    ref = batched_sssp_maxrank(c.ell_src, c.ell_w, c.rank,
+                               torch.as_tensor(roots))
+    assert torch.equal(st.dist.cpu(), ref.dist)
+    assert torch.equal(st.mrank.cpu(), ref.mrank)
+    plan = BuildPlan(algo="plant", batch=8)
+    card = build(g, rank, plan, device=cuda_device)
+    cpu = build(g, rank, plan, device="cpu")
+    for x, y in zip(card.table, cpu.table):
+        assert torch.equal(x.cpu(), y)
 
 
 @pytest.mark.parametrize("algo,windows", [("gll", False), ("lcc", False),

@@ -49,8 +49,7 @@ from repro_torch.sssp.oracle import dijkstra
 
 torch.set_num_threads(1)
 
-GRAPH_FIELDS = ("ell_src", "ell_w", "ell_dst", "ell_w_out", "indptr",
-                "indices", "weights")
+GRAPH_FIELDS = ("ell_src", "ell_w", "indptr", "indices", "weights")
 
 #: the five graphs of the reference's test_directed.py: three cover
 #: cases (random ranking) and two PLL-equality cases (degree ranking)

@@ -53,9 +53,13 @@ def sf():
 
 
 def ref_graph(g) -> rg.Graph:
-    """The reference package's Graph with the port graph's arrays."""
-    return rg.Graph(**{f.name: getattr(g, f.name)
-                       for f in dataclasses.fields(Graph)})
+    """The reference package's Graph of the port graph's arcs: its CSR
+    through the reference's ``from_edges``, as ``load_npz`` rebuilds a
+    graph."""
+    src = np.repeat(np.arange(g.n, dtype=np.int32),
+                    np.diff(g.indptr).astype(np.int64))
+    return rg.from_edges(g.n, src, g.indices, g.weights,
+                         directed=g.directed)
 
 
 def ref_batch(batch: MutationBatch) -> rd.MutationBatch:
@@ -172,7 +176,7 @@ def test_apply_and_resolve_equal_the_reference():
         assert got.dtype == exp.dtype
         assert np.array_equal(got, exp, equal_nan=True), f
     g2 = batch.apply(g)
-    r2 = ref_batch(batch).apply(ref_graph(g))
+    r2 = interop.graph(ref_batch(batch).apply(ref_graph(g)))
     for f in dataclasses.fields(Graph):
         a, b = getattr(g2, f.name), getattr(r2, f.name)
         if isinstance(a, np.ndarray):

@@ -23,8 +23,7 @@ from repro_torch import graphs as tg
 from repro_torch.graphs import generators as tgen
 from repro_torch.graphs import io as tio
 
-ARRAYS = ("ell_src", "ell_w", "ell_dst", "ell_w_out", "indptr", "indices",
-          "weights")
+ARRAYS = ("ell_src", "ell_w", "indptr", "indices", "weights")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
