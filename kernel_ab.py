@@ -25,12 +25,18 @@ measures, with ``chip_smoke.py``'s timers:
   every checkout) on two synthetic states made on the card from a seed:
   a uniform random graph shaped as ``chlbench``'s ``chl_urand22`` (n =
   4,194,304, Poisson(34) finite in-edges a row in an ELL of width 72,
-  weights in [1, 2048), B = 4 and the card's window plan) and a
-  4096 x 4096 lattice (B = 4), every tree alive and ``prop`` finite at a
-  set share of the sources (``windowed-urand-<per mille>``,
-  ``windowed-grid-<per mille>``): the device time all of a call's device
-  work covers, ms per call by CUDA events, held equal to the dense
-  sweep ``ell_relax`` on the same operands;
+  weights in [1, 2048), B = 4 and the card's window plan), a 4096 x 4096
+  lattice (B = 4) and a graph of ``chl_kron22``'s hub shape (n =
+  4,194,304, Poisson(12) finite in-edges a row in an ELL of width 32,
+  and a hub tail of one row of 163,025 in-edges and five of 67,600 from
+  sources anywhere: each hub's segment in each of the six windows is a
+  tile alone, the largest ~27K edges), every tree alive and ``prop``
+  finite at a set share of the sources (``windowed-urand-<per mille>``,
+  ``windowed-grid-<per mille>``, ``windowed-kron-<per mille>``): the
+  device time all of a call's device work covers, ms per call by CUDA
+  events, held equal to the dense sweep ``ell_relax`` on the same
+  operands (kron's tail, which the dense kernel does not read, to the
+  plain sweep ``ell_sweep_plain``);
 - the serving entry point ``query_table(table, u, v)`` (its public API
   in every checkout) on 65,536 random pairs over four tables: the
   exactness build's (L = 288), a synthetic road-like table (n =
@@ -62,8 +68,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 #: the windowed sweep's states: graph and finite-source share, per mille
 WINDOWED = {f"windowed-{g}-{pm}": (g, pm) for g, pms in (
-    ("urand", (1, 10, 100, 300, 500, 1000)), ("grid", (10, 1000)))
-    for pm in pms}
+    ("urand", (1, 10, 100, 300, 500, 1000)), ("grid", (10, 1000)),
+    ("kron", (10, 330, 1000))) for pm in pms}
+#: the kron states' hub rows: in-edges of kron22's largest hub, then of
+#: the next five
+KRON_HUBS = (163025,) + (67600,) * 5
 STATES = ("exactness", "road-mid", "random-mid", "dense", "query-exactness",
           "query-road", "query-random", "query-synthetic-256") + tuple(
               WINDOWED)
@@ -91,13 +100,14 @@ def relax_state(dev, g, rank, batch, sweeps):
 
 def windowed_graph(dev, graph):
     """The windowed states' adjacency, made on the card from a seed:
-    (ell_src, ell_w)."""
+    (ell_src, ell_w), kron's with its hub tail bound to them."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
-    if graph == "urand":
-        n, deg = 4194304, 72
-        finite = torch.poisson(torch.full((n,), 34.0, device=dev),
+    if graph in ("urand", "kron"):
+        n, deg, mean = (4194304, 72, 34.0) if graph == "urand" else (
+            4194304, 32, 12.0)
+        finite = torch.poisson(torch.full((n,), mean, device=dev),
                                generator=gen).clamp(max=deg)
         es = torch.randint(0, n, (n, deg), device=dev, generator=gen,
                            dtype=torch.int32)
@@ -111,6 +121,17 @@ def windowed_graph(dev, graph):
                                          1), 0).to(torch.int32)
     ew = torch.where(ok, torch.randint(1, 2048, ok.shape, device=dev,
                                        generator=gen).float(), torch.inf)
+    if graph == "kron":
+        from repro_torch.kernels.ell_relax.tail import EllTail, attach
+        hubs = torch.randperm(n, device=dev, generator=gen)[:len(KRON_HUBS)]
+        dst = torch.repeat_interleave(
+            hubs, torch.tensor(KRON_HUBS, device=dev)).sort().values
+        attach(es, ew, EllTail(
+            dst.to(torch.int32),
+            torch.randint(0, n, dst.shape, device=dev, generator=gen,
+                          dtype=torch.int32),
+            torch.randint(1, 2048, dst.shape, device=dev,
+                          generator=gen).float()))
     return es, ew
 
 
@@ -196,7 +217,7 @@ def measure_root(root: Path, only) -> dict:
                                       for r in idx.report.supersteps)
             out[what]["digest"] += "/" + digest(*idx.table)
             exact_table = idx.table
-    for graph in ("urand", "grid"):
+    for graph in ("urand", "grid", "kron"):
         wanted = [w for w, (g, _) in WINDOWED.items()
                   if g == graph and w in only]
         if not wanted:
@@ -209,10 +230,12 @@ def measure_root(root: Path, only) -> dict:
             call = lambda: ell_relax_windowed(         # noqa: E731
                 dist, mrank, prop, alive, lay, rank)
             kd, km = call()
-            dd, dm = ell_relax(dist, mrank, prop, alive, es, ew, rank)
+            dd, dm = (ell_sweep_plain if graph == "kron" else ell_relax)(
+                dist, mrank, prop, alive, es, ew, rank)
             torch.cuda.synchronize()
             cs.require(torch.equal(kd, dd) and torch.equal(km, dm),
-                       f"ell_relax_windowed != ell_relax at {what} in {root}")
+                       f"ell_relax_windowed != its plain or dense version"
+                       f" at {what} in {root}")
             evs = cs.device_events(call, 10)
             out[what] = {"ms": cs.time_ms(call, reps=20),
                          "device_ms": (cs.covered(evs) / 1e3 / 10

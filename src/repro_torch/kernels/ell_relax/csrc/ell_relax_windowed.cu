@@ -67,8 +67,17 @@
 //   loads still fill a sector, and no lane idles on a retired tree. A
 //   pair gathers the mask bytes of four edges, then prop only at the set
 //   bits. The retired trees' rows then copy through.
-// - A segment longer than the buffers is a tile alone, and that block
-//   reads its edges from device memory.
+// - A segment longer than the buffers is a tile alone (a hub's row in a
+//   window), and its block folds it whole (`relax_lone`, a function of
+//   its own): consecutive threads read consecutive edges from device
+//   memory, once each, and fold each edge for LONE_TREES trees at a time,
+//   so that every edge load feeds that many independent prop gathers
+//   (where the tree group is gated, after its mask byte). The warps then
+//   combine their threads' (best, bm) by shuffles and the block its
+//   warps' through shared memory: min, then max over the ranks that
+//   attain it, exact and order-free, so that the result is still
+//   bit-identical. Only then does one thread a tree wait for the row's
+//   partial, so that the fold itself overlaps the previous window.
 // - Only the gathers, which come from the window's slice, and the
 //   fold's partials use L2 normally. Everything read or written once
 //   (edges, metadata, rank, dist/mrank at the destination rows, the
@@ -155,26 +164,51 @@ __shared__ unsigned char sh_flags[TILE_SEGS];
 // {source, weight bits} per edge: one 8 B load per edge in the fold
 __shared__ __align__(16) int2 sh_edge[EDGE_BUF];
 
-// a lone segment's edges, read from device memory
-struct GlobalEdges {
-  const int* src;
-  const float* w;
-  __device__ __forceinline__ int2 operator[](int e) const {
-    return make_int2(__ldg(src + e), __float_as_int(__ldg(w + e)));
-  }
-};
-
 __device__ __forceinline__ int source_of(const int2* e, int i) {
   return e[i].x;
 }
 __device__ __forceinline__ float weight_of(const int2* e, int i) {
   return __int_as_float(e[i].y);
 }
-__device__ __forceinline__ int source_of(const GlobalEdges& e, int i) {
-  return __ldg(e.src + i);
+
+// a retired tree's row (or a row with no finite in-edge) copied through
+__device__ __forceinline__ void copy_through(const Planes& p, long long o) {
+  __stcs(p.out_d + o, __ldcs(p.dist + o));
+  __stcs(p.out_m + o, __ldcs(p.mrank + o));
 }
-__device__ __forceinline__ float weight_of(const GlobalEdges& e, int i) {
-  return __ldg(e.w + i);
+
+// A row's fold (best, bm) into the outputs: at the row's last segment
+// the epilogue (min with self, then keep / through max-rank merge) on
+// its own dist d0, mrank m0 and rank rv; else the partial, which keeps
+// L2's default policy, so that some partials are still there when the
+// row's next window reads them.
+__device__ __forceinline__ void store_row(const Planes& p, long long o,
+                                          bool last, float best, int bm,
+                                          float d0, int m0, int rv) {
+  if (last) {
+    const float nd = fminf(d0, best);
+    const int through = (best <= nd && bm >= 0) ? max(bm, rv) : -1;
+    const int keep = (d0 <= nd) ? m0 : -1;
+    __stcs(p.out_d + o, nd);
+    __stcs(p.out_m + o, max(keep, through));
+  } else {
+    p.out_d[o] = best;
+    p.out_m[o] = bm;
+  }
+}
+
+// The lexicographic fold of a candidate (c, r) into (best, bm): the
+// minimum, and the largest rank among the candidates that attain it.
+// (+inf, -1) is its identity, and a fold of partials in any order gives
+// the same result.
+__device__ __forceinline__ void fold_min_max(float& best, int& bm, float c,
+                                             int r) {
+  if (c < best) {
+    best = c;
+    bm = r;
+  } else if (c == best) {
+    bm = max(bm, r);
+  }
 }
 
 // The lexicographic fold of one destination's segment for tree b, then
@@ -184,20 +218,17 @@ __device__ __forceinline__ float weight_of(const GlobalEdges& e, int i) {
 // group of the mask, comes first, one request for the lanes of the
 // group, and prop only where ``bit`` is set; a clear bit is a source
 // whose prop is +inf, which folds as the identity.
-template <bool MASKED, class Edges>
+template <bool MASKED>
 __device__ __forceinline__ void relax_pair(const Planes& p, long long b,
                                            int v, unsigned flags,
-                                           const Edges& edges, int lo,
+                                           const int2* edges, int lo,
                                            int hi,
                                            const unsigned char* mg = nullptr,
                                            unsigned bit = 0) {
   const long long o = b * p.n + v;
   const bool last = flags & 2u;
   if (!__ldg(p.alive + b)) {
-    if (last) {
-      __stcs(p.out_d + o, __ldcs(p.dist + o));
-      __stcs(p.out_m + o, __ldcs(p.mrank + o));
-    }
+    if (last) copy_through(p, o);
     return;
   }
   // the row's own loads go out before the gathers, which do not wait
@@ -206,9 +237,7 @@ __device__ __forceinline__ void relax_pair(const Planes& p, long long b,
   int bm = -1, m0 = -1, rv = 0;
   if (!(flags & 1u)) {
     // resume the row's fold where its previous window left it, once
-    // that window's launch has finished; the partials keep L2's default
-    // policy, so that some are still there when the row's next window
-    // reads them
+    // that window's launch has finished
     wait_for_previous_window();
     best = p.out_d[o];
     bm = p.out_m[o];
@@ -257,17 +286,7 @@ __device__ __forceinline__ void relax_pair(const Planes& p, long long b,
         if (c[j] == nb) bm = max(bm, __ldg(mb + sx[j]));
     }
   }
-  if (last) {
-    // epilogue: min with self, then keep / through max-rank merge
-    const float nd = fminf(d0, best);
-    const int through = (best <= nd && bm >= 0) ? max(bm, rv) : -1;
-    const int keep = (d0 <= nd) ? m0 : -1;
-    __stcs(p.out_d + o, nd);
-    __stcs(p.out_m + o, max(keep, through));
-  } else {
-    p.out_d[o] = best;
-    p.out_m[o] = bm;
-  }
+  store_row(p, o, last, best, bm, d0, m0, rv);
 }
 
 // the k-th (from 0) set bit of x
@@ -292,18 +311,6 @@ struct TileSegs {
   }
 };
 
-// a lone segment (its tile's only one), edges from device memory
-struct LoneSeg {
-  int row_, hi_;
-  unsigned flags_;
-  GlobalEdges edges_;
-  __device__ __forceinline__ int row(int) const { return row_; }
-  __device__ __forceinline__ unsigned flags(int) const { return flags_; }
-  __device__ __forceinline__ int lo(int) const { return 0; }
-  __device__ __forceinline__ int hi(int) const { return hi_; }
-  __device__ __forceinline__ GlobalEdges edges() const { return edges_; }
-};
-
 // A gated block's pairs, a function of its own so that its registers
 // do not crowd the ungated fold's: runs of CHUNK_SEGS consecutive
 // segments, each run holding (segment, live tree) pairs with the segment
@@ -312,10 +319,9 @@ struct LoneSeg {
 // row loads fill a sector; no lane idles on a retired tree. Each pair
 // folds masked where its group is gated. Then the retired trees copy
 // through at their rows' last segments.
-template <class Seg>
 __device__ __noinline__ void relax_gated(const Planes p, const Mask m,
                                          const unsigned gate, const int ns,
-                                         const Seg seg) {
+                                         const TileSegs seg) {
   const unsigned long long live = __ldg(m.live);
   const int tid = threadIdx.x, L = __popcll(live);
   const int run = CHUNK_SEGS * L;      // pairs of one run of segments
@@ -345,12 +351,168 @@ __device__ __noinline__ void relax_gated(const Planes p, const Mask m,
   if (L == p.B) return;
   for (int q = tid; q < ns * (int)p.B; q += THREADS) {
     const int s = q % ns, b = q / ns;
-    if (!((live >> b) & 1ull) && (seg.flags(s) & 2u)) {
-      const long long o = b * p.n + seg.row(s);
-      __stcs(p.out_d + o, __ldcs(p.dist + o));
-      __stcs(p.out_m + o, __ldcs(p.mrank + o));
-    }
+    if (!((live >> b) & 1ull) && (seg.flags(s) & 2u))
+      copy_through(p, b * p.n + seg.row(s));
   }
+}
+
+// A lone tile's block folds its segment LONE_TREES trees at a time, and
+// keeps each tree's block-wide fold in shared memory until the trees'
+// rows are finished, for LONE_CHUNK trees at once. Both live in the
+// staging buffer sh_edge, which a lone tile does not use: first the
+// warps' folds of two consecutive groups, then the chunk's.
+constexpr int LONE_TREES = 4;
+constexpr int WARPS = THREADS / 32;
+constexpr int LONE_PARTS = 2 * WARPS * LONE_TREES;
+constexpr int LONE_CHUNK = 1024;
+static_assert(LONE_PARTS + LONE_CHUNK <= EDGE_BUF,
+              "the lone fold's scratch must fit the edge buffer");
+
+// A lone segment, destination v and edges [lo, hi) of src / w, folded by
+// the whole block. Thread t folds edges lo + t, lo + t + THREADS, ...
+// (each edge read once, the warp's loads coalesced, the next edge's
+// loads issued before this one's gathers) for the live trees of a group
+// of LONE_TREES; where the window gates the group's mask group, prop is
+// gathered only at the set bits of the source's mask byte. The warps
+// combine their lanes' folds by shuffles, the block its warps' through
+// shared memory (`fold_min_max`: exact, so the result does not depend on
+// how the edges were split). Then one thread a tree resumes the row's
+// partial where the segment is not the row's first (only now waiting for
+// the previous window), and stores the row (`store_row`); retired trees
+// copy through at the row's last segment.
+template <bool MASKED>
+__device__ __forceinline__ void relax_lone_segment(
+    const Planes& p, const Mask& m, const unsigned gate, const int v,
+    const unsigned flags, const int* __restrict__ src,
+    const float* __restrict__ w, const int lo, const int hi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool last = flags & 2u;
+  int2* const part = sh_edge;                     // [2][WARPS][LONE_TREES]
+  int2* const res = sh_edge + LONE_PARTS;         // [LONE_CHUNK]
+  int k = 0;                                      // groups folded
+  for (long long c0 = 0; c0 < p.B; c0 += LONE_CHUNK) {
+    const long long c1 = min(p.B, c0 + LONE_CHUNK);
+    for (long long b0 = c0; b0 < c1; b0 += LONE_TREES, ++k) {
+      unsigned live = 0;
+#pragma unroll
+      for (int j = 0; j < LONE_TREES; ++j)
+        if (b0 + j < c1 && __ldg(p.alive + b0 + j)) live |= 1u << j;
+      // the group's byte of the mask, where its mask group is gated (a
+      // group of LONE_TREES lies in one mask group)
+      const unsigned char* mg = nullptr;
+      if constexpr (MASKED) {
+        if (b0 < GATE_TREES && ((gate >> (b0 / MASK_GROUP)) & 1u))
+          mg = m.mask + b0 / MASK_GROUP * p.n;
+      }
+      const int shift = (int)(b0 % MASK_GROUP);
+      const float* pb = p.prop + b0 * p.n;
+      const int* mb = p.mrank + b0 * p.n;
+      float best[LONE_TREES];
+      int bm[LONE_TREES];
+#pragma unroll
+      for (int j = 0; j < LONE_TREES; ++j) {
+        best[j] = INFINITY;
+        bm[j] = -1;
+      }
+      if (live) {
+        int e = lo + tid;
+        int s = e < hi ? __ldcs(src + e) : 0;
+        float we = e < hi ? __ldcs(w + e) : 0.0f;
+        for (; e < hi; e += THREADS) {
+          const int en = e + THREADS;
+          const int sn = en < hi ? __ldcs(src + en) : 0;
+          const float wn = en < hi ? __ldcs(w + en) : 0.0f;
+          unsigned hit = live;
+          if constexpr (MASKED) {
+            if (mg) hit &= __ldg(mg + s) >> shift;
+          }
+          float c[LONE_TREES];
+#pragma unroll
+          for (int j = 0; j < LONE_TREES; ++j)
+            c[j] = (hit >> j) & 1u ? __ldg(pb + j * p.n + s) + we
+                                   : INFINITY;
+          // mrank only where the candidate attains the tree's minimum
+#pragma unroll
+          for (int j = 0; j < LONE_TREES; ++j)
+            if (c[j] <= best[j] && isfinite(c[j]))
+              fold_min_max(best[j], bm[j], c[j], __ldg(mb + j * p.n + s));
+          s = sn;
+          we = wn;
+        }
+      }
+      int2* const pk = part + (k & 1) * WARPS * LONE_TREES;
+#pragma unroll
+      for (int j = 0; j < LONE_TREES; ++j) {
+        for (int off = 16; off; off >>= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best[j], off);
+          const int om = __shfl_xor_sync(0xffffffffu, bm[j], off);
+          fold_min_max(best[j], bm[j], ob, om);
+        }
+        if (lane == 0)
+          pk[warp * LONE_TREES + j] = make_int2(__float_as_int(best[j]),
+                                                bm[j]);
+      }
+      // (the other half of part, which the next group writes, was read
+      // before every thread passed this group's barrier)
+      __syncthreads();
+      if (tid < LONE_TREES && b0 + tid < c1) {
+        float bb = INFINITY;
+        int bbm = -1;
+        for (int q = 0; q < WARPS; ++q) {
+          const int2 x = pk[q * LONE_TREES + tid];
+          fold_min_max(bb, bbm, __int_as_float(x.x), x.y);
+        }
+        res[b0 - c0 + tid] = make_int2(__float_as_int(bb), bbm);
+      }
+    }
+    __syncthreads();
+    for (long long b = c0 + tid; b < c1; b += THREADS) {
+      const long long o = b * p.n + v;
+      if (!__ldg(p.alive + b)) {
+        if (last) copy_through(p, o);
+        continue;
+      }
+      float best = __int_as_float(res[b - c0].x);
+      int bm = res[b - c0].y;
+      float d0 = 0.0f;
+      int m0 = -1, rv = 0;
+      if (last) {
+        d0 = __ldcs(p.dist + o);
+        m0 = __ldcs(p.mrank + o);
+        rv = __ldcs(p.rank + v);
+      }
+      if (!(flags & 1u)) {
+        // resume the row's partial, once the previous window is done
+        wait_for_previous_window();
+        fold_min_max(best, bm, p.out_d[o], p.out_m[o]);
+      }
+      store_row(p, o, last, best, bm, d0, m0, rv);
+    }
+    // the chunk's folds are read before the next chunk writes them
+    __syncthreads();
+  }
+}
+
+// A lone tile's segments (the layout makes it one), each folded by the
+// whole block. A function of its own, and the tile's last call, so that
+// its registers do not crowd the tiled fold's: a call with the tile's
+// values still live after it spills the tiled fold's registers and slows
+// it (measured on the card).
+template <bool MASKED>
+__device__ __noinline__ void relax_lone(const Planes p, const Mask m,
+                                        const unsigned gate,
+                                        const int* __restrict__ seg_row,
+                                        const unsigned char* __restrict__
+                                            seg_flags,
+                                        const int* __restrict__ seg_end,
+                                        const int ns,
+                                        const int* __restrict__ src,
+                                        const float* __restrict__ w) {
+  for (int i = 0; i < ns; ++i)
+    relax_lone_segment<MASKED>(p, m, gate, __ldg(seg_row + i),
+                               __ldg(seg_flags + i), src, w,
+                               i ? __ldg(seg_end + i - 1) : 0,
+                               __ldg(seg_end + i));
 }
 
 template <bool MASKED>
@@ -371,11 +533,7 @@ __device__ __forceinline__ void relax_tiles(
     const long long i = (blockIdx.x - num_tiles) * (long long)THREADS + tid;
     if (i >= num_bare) return;
     const long long v = __ldcs(bare_rows + i);
-    for (long long b = 0; b < p.B; ++b) {
-      const long long o = b * p.n + v;
-      __stcs(p.out_d + o, __ldcs(p.dist + o));
-      __stcs(p.out_m + o, __ldcs(p.mrank + o));
-    }
+    for (long long b = 0; b < p.B; ++b) copy_through(p, b * p.n + v);
     return;
   }
 
@@ -397,28 +555,10 @@ __device__ __forceinline__ void relax_tiles(
   long long b = tid / ns;
 
   if (ns > TILE_SEGS || ne > TILE_EDGES) {
-    // a lone segment longer than the buffers: edges from device memory
-    if constexpr (MASKED) {
-      if (gate) {
-        relax_gated(p, m, gate, 1,
-                    LoneSeg{__ldg(seg_row + s0), __ldg(seg_end + s0),
-                            __ldg(seg_flags + s0),
-                            GlobalEdges{edge_src + e0, edge_w + e0}});
-        return;
-      }
-    }
-    for (long long q = tid; q < pairs; q += THREADS) {
-      const long long i = s0 + s;
-      relax_pair<false>(p, b, __ldg(seg_row + i), __ldg(seg_flags + i),
-                        GlobalEdges{edge_src + e0, edge_w + e0},
-                        s ? __ldg(seg_end + i - 1) : 0, __ldg(seg_end + i));
-      s += ds;
-      b += db;
-      if (s >= ns) {
-        s -= ns;
-        ++b;
-      }
-    }
+    // a segment longer than the buffers (the layout leaves it alone in
+    // its tile): the whole block folds it from device memory
+    relax_lone<MASKED>(p, m, gate, seg_row + s0, seg_flags + s0,
+                       seg_end + s0, ns, edge_src + e0, edge_w + e0);
     return;
   }
 

@@ -276,12 +276,10 @@ def _lone_first(keys, counts, order, n: int):
     ``counts``, and ``order``, the edges segment by segment) with each
     window's segments longer than `TILE_EDGES` first, longest first.
 
-    A lone tile is folded serially by one block from device memory, and
-    the rows a window leaves partial make the next window's pass wait
-    for this one to end, so a lone tile is the long pole of its
-    window's pass: at the front, its block starts with the pass,
-    wherever the vertex numbering puts its row. A layout without lone
-    segments keeps its order."""
+    A lone tile is folded by one block from device memory, the most
+    work of any block of its window's pass: at the front, its block
+    starts with the pass, wherever the vertex numbering puts its row. A
+    layout without lone segments keeps its order."""
     lone = counts > TILE_EDGES
     if not bool(lone.any()):
         return keys, counts, order

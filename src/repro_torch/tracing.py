@@ -37,9 +37,12 @@ How to read it::
   ``edges`` (the adjacency's finite arcs, its hub tail's included);
   the layout's counters (`kernels.ell_relax.layout.BucketedEll.counters`):
   ``tail_arcs`` and ``split_rows`` (the hub tail's arcs and
-  destinations), ``lone_tiles`` and ``lone_tile_edges`` (the tiles the
-  windowed kernel folds from device memory, one segment longer than it
-  stages, and their edges) and ``longest_segment`` (with no layout:
+  destinations), ``lone_tiles`` and ``lone_tile_edges`` (the tiles of
+  one segment longer than the windowed kernel stages, and their edges:
+  every sweep folds each such tile with its whole block from device
+  memory, so these counts are also that fold's engagement, and
+  ``gated_windows`` below says where it read the mask first) and
+  ``longest_segment`` (with no layout:
   the tail's two counted from the tail, no lone tile, and
   ``longest_segment`` None); where the windowed kernel
   packed its activity mask (`kernels.ell_relax.windowed.mask_pays`):

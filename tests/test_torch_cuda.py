@@ -9,7 +9,10 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   multiple of a block's trees, a hub row longer than a tile's edge
   buffer, an empty window, retired trees);
 - over a degree-capped adjacency with a hub tail (and lone tiles) the
-  windowed kernel equals the plain sweep that folds the tail; such an
+  windowed kernel equals the plain sweep that folds the tail, with
+  segments past the tile's edge buffer (folded by a whole block) just
+  past it, of a ragged length, and past kron22's longest in three
+  windows, at 1 to 65 trees, gated and ungated; such an
   adjacency sweeps the windowed kernel even in one window, the dense
   kernel refuses it, and its PLaNT build equals the CPU's;
 - a PLaNT build on the card (kernel path: gated sweeps, stride 4)
@@ -403,6 +406,117 @@ def test_ell_relax_windowed_on_a_tailed_layout_equals_plain(
     kd, km = ell_relax_windowed(dist, mrank, dist, alive, lay, a.rank)
     pd, pm = ell_sweep_plain(dist, mrank, dist, alive, a.ell_src, a.ell_w,
                              a.rank)
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+
+
+#: the lone-segment cases: three windows of `LONE_W` vertices, and hub
+#: rows {row: edges in each window} in the hub tail: a segment just past
+#: the tile's edge buffer (the row's first, a partial), one of a length
+#: that neither 4 nor a block's 256 threads divide (mid-row: it resumes
+#: a partial and leaves one), and a row past kron22's longest segment
+#: (27,334) in every window, which resumes twice
+LONE_W = 40_960
+LONE_HUBS = {
+    "just-past": {3: (port_layout.TILE_EDGES + 1, 0, 0)},
+    "ragged": {1000: (0, 5003, 0)},
+    "far-past": {77_777: (30_011, 30_011, 30_011)},
+}
+
+
+def lone_adjacency(rng, hubs, device):
+    """A pull ELL of width 40 (three quarters finite, sources anywhere)
+    over three windows of `LONE_W`, and a hub tail bound to it holding
+    ``hubs`` (`LONE_HUBS`): a hub's edges in a window are distinct
+    sources of that window, and its ELL keeps no edge there, so that
+    each such segment has exactly the given length. Weights are small
+    integers, so that candidates tie."""
+    from repro_torch.kernels.ell_relax.tail import EllTail, attach
+    n, deg = 3 * LONE_W, 40
+    ell_src = rng.integers(0, n, (n, deg)).astype(np.int32)
+    ell_w = np.where(rng.random((n, deg)) < 0.75,
+                     rng.integers(1, 9, (n, deg)), np.inf).astype(np.float32)
+    dst, src = [], []
+    for row, counts in sorted(hubs.items()):
+        for wd, c in enumerate(counts):
+            if c:
+                ell_w[row, ell_src[row] // LONE_W == wd] = np.inf
+                src.append(wd * LONE_W + rng.choice(LONE_W, c,
+                                                    replace=False))
+                dst.append(np.full(c, row))
+    src = np.concatenate(src).astype(np.int32)
+    tail = EllTail(*(torch.as_tensor(x, device=device) for x in (
+        np.concatenate(dst).astype(np.int32), src,
+        rng.integers(1, 9, src.size).astype(np.float32))))
+    es, ew = (torch.as_tensor(x, device=device) for x in (ell_src, ell_w))
+    attach(es, ew, tail)
+    return es, ew
+
+
+def lone_state(rng, B, n, density, device):
+    """B trees with small integer distances at ``density`` of the
+    vertices (prop = dist, as a sweep whose finite vertices are all
+    active), random ranks, and trees 2, 9, 16, ... retired (none at
+    B = 1)."""
+    finite = rng.random((B, n)) < density
+    dist = np.where(finite, rng.integers(0, 9, (B, n)),
+                    np.inf).astype(np.float32)
+    mrank = np.where(finite, rng.integers(0, n, (B, n)), -1).astype(np.int32)
+    alive = (np.arange(B) % 7 != 2) | (B == 1)
+    rank = rng.permutation(n).astype(np.int32)
+    return [torch.as_tensor(x, device=device)
+            for x in (dist, mrank, alive, rank)]
+
+
+def gated_choices(prop, alive, lay):
+    """`windowed.gated` for each (window, group of `MASK_GROUP` trees),
+    as the kernel's choose pass makes it."""
+    B, n = prop.shape
+    W, nw = lay.window, lay.num_windows
+    bits = (torch.isfinite(prop) & alive[:, None]).cpu()
+    out = []
+    for wd in range(nw):
+        wv = min(W, n - wd * W)
+        row = []
+        for g0 in range(0, B, MASK_GROUP):
+            live = int(alive[g0:g0 + MASK_GROUP].sum())
+            d = (int(bits[g0:g0 + MASK_GROUP, wd * W:wd * W + wv].sum())
+                 / (live * wv) if live else 1.0)
+            row.append(windowed.gated(live, d, lay.gather_gain))
+        out.append(row)
+    return torch.tensor(out)
+
+
+@pytest.mark.parametrize("density", [0.01, 0.7])
+@pytest.mark.parametrize("B", [1, 4, 9, 13, 65])
+@pytest.mark.parametrize("hubs", list(LONE_HUBS))
+def test_ell_relax_windowed_folds_lone_segments_exactly(cuda_device, hubs, B,
+                                                        density):
+    """A segment past the tile's edge buffer is folded by its whole block
+    (edges split over the threads, then an exact min / max-rank
+    reduction): the windowed kernel equals the plain sweep bit for bit,
+    at segment lengths just past the buffer, ragged, and past kron22's
+    longest across three windows; at B = 1, 4, 9 (across a mask group),
+    13 and 65 (past `GATE_TREES`: no mask), with retired trees; sparse
+    (gated where the mask pays) and dense (ungated)."""
+    rng = np.random.default_rng(B * 1000 + int(density * 100)
+                                + len(LONE_HUBS[hubs]))
+    es, ew = lone_adjacency(rng, LONE_HUBS[hubs], cuda_device)
+    n = es.shape[0]
+    dist, mrank, alive, rank = lone_state(rng, B, n, density, cuda_device)
+    lay = sweep_layout(es, ew, bb=B, max_window=LONE_W)
+    assert lay.num_windows == 3 and lay.window == LONE_W
+    counts = [c for cs in LONE_HUBS[hubs].values() for c in cs if c]
+    s = lay.segments
+    lone = s.tile_edges.diff() > port_layout.TILE_EDGES
+    assert sorted(s.tile_edges.diff()[lone].tolist()) == sorted(counts)
+    assert lay.counters["lone_tiles"] == len(counts)
+    gated = gated_choices(dist, alive, lay)
+    assert windowed.mask_pays(B, lay) == (B <= GATE_TREES)
+    if B <= GATE_TREES:
+        # sparse: every (window, group) gated; dense: none
+        assert gated.all() if density < 0.5 else not gated.any()
+    kd, km = ell_relax_windowed(dist, mrank, dist, alive, lay, rank)
+    pd, pm = ell_sweep_plain(dist, mrank, dist, alive, es, ew, rank)
     assert torch.equal(kd, pd) and torch.equal(km, pm)
 
 
