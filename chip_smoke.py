@@ -125,7 +125,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    ``plant_fixpoint_dense`` over the 4.3 GB dense weight block (the
    minplus kernel), equal to the ELL engine on the card (its largest
    degree, 359, passes the ELL cap, so the engine sweeps its capped
-   ELL and hub tail through the windowed kernel, in one window);
+   ELL and hub tail through the windowed kernel, on the one-window
+   layout built with its tail);
 5. road scale: the chl-road configuration, grid_road(4096, 4096)
    (n = 16,777,216, ELL width 8), one PLaNT superstep of one cluster
    node — 8 unpruned trees in batches of 4, label cap 8 — through the
@@ -3341,7 +3342,7 @@ def time_relax(dev, what, g, rank, roots, batch, sweeps, reps=20) -> dict:
                                                ell_sweep_plain)
     from repro_torch.sssp import batched_sssp_maxrank, ell_layout
     a = device_arrays(g, rank, dev)
-    lay = ell_layout(a.ell_src, a.ell_w, batch=batch)
+    lay = ell_layout(a.ell_src, a.ell_w, batch=batch, tail=a.tail)
     roots_d = torch.as_tensor(roots[:batch], device=dev).long()
     st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
                               max_sweeps=sweeps, layout=lay)
@@ -3406,7 +3407,7 @@ def trace_sweeps(dev, what, g, rank, roots, batch, sweeps=16,
     from repro_torch.graphs import device_arrays
     from repro_torch.sssp import batched_sssp_maxrank, ell_layout
     a = device_arrays(g, rank, dev)
-    lay = ell_layout(a.ell_src, a.ell_w, batch=batch)
+    lay = ell_layout(a.ell_src, a.ell_w, batch=batch, tail=a.tail)
     roots_d = torch.as_tensor(roots[:batch], device=dev).long()
     block_fn = None if block is None else block(roots_d)
     batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots_d,
@@ -3536,7 +3537,7 @@ def phase_dense(dev, kernels) -> dict:
                                              plant_fixpoint_dense)
     mp = importlib.import_module("repro_torch.kernels.minplus.minplus")
     minplus_geometry = mp.launch_geometry
-    from repro_torch.sssp import batched_sssp_maxrank
+    from repro_torch.sssp import batched_sssp_maxrank, ell_layout
     t0 = time.perf_counter()
     g = scale_free(DENSE_N, attach=2, seed=0)
     rank = degree_ranking(g)
@@ -3552,7 +3553,9 @@ def phase_dense(dev, kernels) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = path_launches(kernels, ("minplus",), "dense")
-    st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots)
+    lay = ell_layout(a.ell_src, a.ell_w, batch=DENSE_ROOTS, tail=a.tail)
+    st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, roots,
+                              layout=lay)
     require(torch.equal(dist, st.dist) and torch.equal(mrank, st.mrank),
             "dense: (dist, mrank) != the ELL engine's")
     want = (st.mrank == a.rank[roots][:, None]) & torch.isfinite(st.dist)

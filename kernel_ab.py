@@ -35,8 +35,9 @@ measures, with ``chip_smoke.py``'s timers:
   ``windowed-grid-<per mille>``, ``windowed-kron-<per mille>``): the
   device time all of a call's device work covers, ms per call by CUDA
   events, held equal to the dense sweep ``ell_relax`` on the same
-  operands (kron's tail, which the dense kernel does not read, to the
-  plain sweep ``ell_sweep_plain``);
+  operands (kron's, with its hub tail passed to ``sweep_layout`` as
+  ``tail=``, to the plain sweep of ELL + tail ``ell_sweep_plain(...,
+  tail=)``: the dense kernel reads the ELL alone);
 - the serving entry point ``query_table(table, u, v)`` (its public API
   in every checkout) on 65,536 random pairs over four tables: the
   exactness build's (L = 288), a synthetic road-like table (n =
@@ -100,7 +101,7 @@ def relax_state(dev, g, rank, batch, sweeps):
 
 def windowed_graph(dev, graph):
     """The windowed states' adjacency, made on the card from a seed:
-    (ell_src, ell_w), kron's with its hub tail bound to them."""
+    (ell_src, ell_w, tail), the tail None but for kron."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
@@ -121,18 +122,34 @@ def windowed_graph(dev, graph):
                                          1), 0).to(torch.int32)
     ew = torch.where(ok, torch.randint(1, 2048, ok.shape, device=dev,
                                        generator=gen).float(), torch.inf)
+    tail = None
     if graph == "kron":
-        from repro_torch.kernels.ell_relax.tail import EllTail, attach
+        from repro_torch.kernels.ell_relax.tail import EllTail
         hubs = torch.randperm(n, device=dev, generator=gen)[:len(KRON_HUBS)]
         dst = torch.repeat_interleave(
             hubs, torch.tensor(KRON_HUBS, device=dev)).sort().values
-        attach(es, ew, EllTail(
+        tail = EllTail(
             dst.to(torch.int32),
             torch.randint(0, n, dst.shape, device=dev, generator=gen,
                           dtype=torch.int32),
             torch.randint(1, 2048, dst.shape, device=dev,
-                          generator=gen).float()))
-    return es, ew
+                          generator=gen).float())
+    return es, ew, tail
+
+
+def tail_kwargs(es, ew, tail) -> dict:
+    """How this checkout's ``sweep_layout`` and ``ell_sweep_plain`` take
+    a hub tail: as ``tail=``, or, in a checkout that bound the tail to
+    the ELL tensors (``tail.attach``), bound here and no argument."""
+    import inspect
+    from repro_torch.kernels.ell_relax import sweep_layout
+    if tail is None:
+        return {}
+    if "tail" in inspect.signature(sweep_layout).parameters:
+        return {"tail": tail}
+    from repro_torch.kernels.ell_relax.tail import attach
+    attach(es, ew, tail)
+    return {}
 
 
 def windowed_operands(dev, n, per_mille):
@@ -222,16 +239,18 @@ def measure_root(root: Path, only) -> dict:
                   if g == graph and w in only]
         if not wanted:
             continue
-        es, ew = windowed_graph(dev, graph)
-        lay = sweep_layout(es, ew, bb=4)
+        es, ew, tail = windowed_graph(dev, graph)
+        kw = tail_kwargs(es, ew, tail)
+        lay = sweep_layout(es, ew, bb=4, **kw)
         for what in wanted:
             dist, mrank, prop, alive, rank = windowed_operands(
                 dev, es.shape[0], WINDOWED[what][1])
             call = lambda: ell_relax_windowed(         # noqa: E731
                 dist, mrank, prop, alive, lay, rank)
             kd, km = call()
-            dd, dm = (ell_sweep_plain if graph == "kron" else ell_relax)(
-                dist, mrank, prop, alive, es, ew, rank)
+            dd, dm = (ell_sweep_plain(dist, mrank, prop, alive, es, ew,
+                                      rank, **kw) if tail is not None else
+                      ell_relax(dist, mrank, prop, alive, es, ew, rank))
             torch.cuda.synchronize()
             cs.require(torch.equal(kd, dd) and torch.equal(km, dm),
                        f"ell_relax_windowed != its plain or dense version"
@@ -243,7 +262,7 @@ def measure_root(root: Path, only) -> dict:
                          "host_us": cs.host_us(call, 5, rounds=5),
                          "digest": digest(kd, km)}
             del dist, mrank, prop, rank, kd, km, dd, dm
-        del es, ew, lay
+        del es, ew, tail, lay
         clear_layout_cache()
         torch.cuda.empty_cache()
     if "dense" not in only and not any(w.startswith("query-")

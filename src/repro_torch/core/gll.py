@@ -49,7 +49,9 @@ def construct_batch(ell_src: torch.Tensor, ell_w: torch.Tensor,
     ``rank_queries``, when it outranks the root); a label is emitted
     where a vertex is reached and unblocked at the fixpoint. Roots
     always label themselves; invalid lanes emit nothing. ``layout``:
-    the adjacency's source-bucketed layout, built once per graph.
+    the adjacency's source-bucketed layout, built once per graph;
+    required, built with ``tail=``, where the adjacency has a hub tail
+    (`repro_torch.sssp.relax.ell_layout`).
     """
     cover = torch.minimum(
         lbl.cover_distance(glob, lbl.hub_distance_map(glob, roots)),

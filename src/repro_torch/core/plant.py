@@ -51,7 +51,8 @@ def plant_batch(ell_src: torch.Tensor, ell_w: torch.Tensor,
     whose tentative distance the table already covers neither
     propagates nor emits. ``layout``: optional source-bucketed layout
     (`repro_torch.sssp.relax.ell_layout`), built once per graph by the
-    caller."""
+    caller; required, built with ``tail=``, where the adjacency has a
+    hub tail (the sweeps read the ELL alone without one)."""
     block_fn = None
     if use_hc:
         if hc is None:

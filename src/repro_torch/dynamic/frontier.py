@@ -72,14 +72,15 @@ def endpoint_planes(g: Graph, roots: Iterable[int], *,
     planes: Dict[int, np.ndarray] = {}
     if len(roots) == 0:
         return planes
-    ell_src, ell_w, _ = device_adjacency(g, dev)
+    ell_src, ell_w, tail = device_adjacency(g, dev)
     for lo in range(0, len(roots), chunk):
         part = roots[lo:lo + chunk]
         width = _bucket(len(part), chunk)
         pad = np.pad(part, (0, width - len(part)), mode="edge")
         dist = batched_sssp(ell_src, ell_w,
                             torch.as_tensor(pad, device=dev),
-                            layout=ell_layout(ell_src, ell_w, batch=width))
+                            layout=ell_layout(ell_src, ell_w, batch=width,
+                                              tail=tail))
         for r, row in zip(part, dist.cpu().numpy()):
             planes[int(r)] = row
     return planes

@@ -53,7 +53,8 @@ def node_graph(g, rank: np.ndarray, device, batch: int):
     window covers the graph)."""
     a = device_arrays(g, rank, device)
     return NodeGraph(a.ell_src, a.ell_w, a.rank,
-                     ell_layout(a.ell_src, a.ell_w, batch=batch))
+                     ell_layout(a.ell_src, a.ell_w, batch=batch,
+                                tail=a.tail))
 
 
 def build_common_table(graph: NodeGraph, eta_roots: np.ndarray,

@@ -148,7 +148,7 @@ class PlantPolicy(Policy):
         # the source-bucketed layout (None when one window covers the
         # graph), built once per graph rather than per batch
         self.layout = ell_layout(self.arrays.ell_src, self.arrays.ell_w,
-                                 batch=self.batch)
+                                 batch=self.batch, tail=self.arrays.tail)
 
     @functools.cached_property
     def fingerprint(self) -> str:
@@ -210,9 +210,9 @@ class DirectedPlantPolicy(Policy):
         self.device = self.fwd.ell_src.device
         self.bwd = device_arrays(g.reverse(), rank, self.device)
         self.fwd_layout = ell_layout(self.fwd.ell_src, self.fwd.ell_w,
-                                     batch=self.batch)
+                                     batch=self.batch, tail=self.fwd.tail)
         self.bwd_layout = ell_layout(self.bwd.ell_src, self.bwd.ell_w,
-                                     batch=self.batch)
+                                     batch=self.batch, tail=self.bwd.tail)
 
     @functools.cached_property
     def fingerprint(self) -> str:
@@ -269,7 +269,7 @@ class GLLPolicy(Policy):
         self.arrays = device_arrays(g, rank, device)
         self.device = self.arrays.ell_src.device
         self.layout = ell_layout(self.arrays.ell_src, self.arrays.ell_w,
-                                 batch=self.batch)
+                                 batch=self.batch, tail=self.arrays.tail)
         self.alpha = alpha
         self.rank_queries = rank_queries
         self.clean = clean

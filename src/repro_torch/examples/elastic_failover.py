@@ -23,6 +23,7 @@ from repro_torch.engine import root_batches
 from repro_torch.ft import HeartbeatMonitor, lost_roots
 from repro_torch.graphs import device_adjacency, scale_free
 from repro_torch.graphs.ranking import degree_ranking
+from repro_torch.sssp import ell_layout
 
 
 def main(device: DeviceLike = None) -> dict:
@@ -36,18 +37,21 @@ def main(device: DeviceLike = None) -> dict:
     per = queues.shape[1]
     print(f"graph n={g.n}; q={q} nodes × {per} roots each")
 
-    ell_src, ell_w, _ = device_adjacency(g, dev)
+    ell_src, ell_w, tail = device_adjacency(g, dev)
+    batch = 16
+    layout = ell_layout(ell_src, ell_w, batch=batch, tail=tail)
     rank_d = torch.as_tensor(rank.astype(np.int32), device=dev)
     table = lbl.empty(g.n, 128, dev)
     monitor = HeartbeatMonitor(q, patience=2)
 
     def plant_roots(roots: np.ndarray):
         nonlocal table
-        for rb, vb in root_batches(roots.astype(np.int32), 16):
+        for rb, vb in root_batches(roots.astype(np.int32), batch):
             safe = np.where(rb >= 0, rb, 0)
             safe_d = torch.as_tensor(safe, device=dev)
             tb = plant_batch(ell_src, ell_w, rank_d, safe_d,
-                             torch.as_tensor(vb & (rb >= 0), device=dev))
+                             torch.as_tensor(vb & (rb >= 0), device=dev),
+                             layout=layout)
             table, ovf = lbl.insert_batch(table, safe_d, tb.emit, tb.dist)
             assert not bool(ovf)
 

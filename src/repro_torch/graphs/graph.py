@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ell_relax.tail import EllTail, attach
+from repro_torch.kernels.ell_relax.tail import EllTail
 
 INF = np.float32(np.inf)
 
@@ -208,16 +208,16 @@ class DeviceGraph(NamedTuple):
     ell_src: torch.Tensor    # int32 [n, deg]
     ell_w: torch.Tensor      # f32   [n, deg], +inf padding
     rank: torch.Tensor       # int32 [n]
-    tail: Optional[EllTail] = None   # bound to (ell_src, ell_w)
+    tail: Optional[EllTail] = None   # in-edges past the ELL's cap
 
 
 def device_adjacency(g: Graph, device: DeviceLike = None
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[EllTail]]:
     """The pull-ELL adjacency on ``device`` (default: the card; raises
-    without CUDA): ``(ell_src, ell_w, tail)``, the tail (None for an
-    empty one) bound to the two ELL tensors, where every sweep entry
-    point finds it (`kernels.ell_relax.tail`)."""
+    without CUDA): ``(ell_src, ell_w, tail)``, the tail None for an
+    empty one. A caller that sweeps it passes the tail to the sweeps'
+    layout (`sssp.relax.ell_layout`, `kernels.ell_relax.tail`)."""
     dev = resolve_device(device)
     ell_src = torch.as_tensor(np.asarray(g.ell_src, np.int32), device=dev)
     ell_w = torch.as_tensor(np.asarray(g.ell_w, np.float32), device=dev)
@@ -230,7 +230,6 @@ def device_adjacency(g: Graph, device: DeviceLike = None
                                 device=dev),
             w=torch.as_tensor(np.asarray(g.tail_w, np.float32),
                               device=dev))
-        attach(ell_src, ell_w, tail)
     return ell_src, ell_w, tail
 
 

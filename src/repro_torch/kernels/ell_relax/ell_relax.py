@@ -1,13 +1,13 @@
 """Wrapper of the hand-written CUDA ELL relaxation kernel
 (``csrc/ell_relax.cu``).
 
-`ell_relax` takes CUDA tensors only. It reads the ELL alone, so it
-refuses a degree-capped adjacency with a hub tail (`tail.refuse_tail`;
-such an adjacency takes the windowed route). It checks device, dtype,
-shape and contiguity, allocates the outputs, launches on the current stream and
-raises if the launch was refused. ``KERNEL.launches`` counts launches.
-`launch_geometry` is the launch's shape: a pure function of
-``(B, n, sm_count)`` that the CPU tests call.
+`ell_relax` takes CUDA tensors only. It reads the ELL alone: the route
+(`ops.ell_sweep`) never hands it an adjacency with a hub tail, which
+always sweeps through its windowed layout. It checks device, dtype,
+shape and contiguity, allocates the outputs, launches on the current
+stream and raises if the launch was refused. ``KERNEL.launches``
+counts launches. `launch_geometry` is the launch's shape: a pure
+function of ``(B, n, sm_count)`` that the CPU tests call.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import torch
 
 from repro_torch.kernels.cuda import (CudaKernel, check_tensors,
                                       current_stream, on_device, sm_count)
-from repro_torch.kernels.ell_relax.tail import refuse_tail
 
 KERNEL = CudaKernel(
     "ell_relax", Path(__file__).resolve().parent / "csrc" / "ell_relax.cu",
@@ -107,7 +106,6 @@ def ell_relax(dist, mrank, prop, alive, ell_src, ell_w, rank):
     out-of-frontier sources); alive bool [B] (False retires the tree);
     ell_src i32 / ell_w f32 [n, deg]; rank i32 [n].
     """
-    refuse_tail("ell_relax", ell_src, ell_w)
     check_operands(dist, mrank, prop, alive, ell_src, ell_w, rank)
     B, n = dist.shape
     out_d = torch.empty_like(dist)

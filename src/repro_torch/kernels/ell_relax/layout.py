@@ -13,25 +13,21 @@ ceil(n / cap)`` and ``window = ceil(n / num_windows)`` rounded up to the
 vertex tile, so a graph just past the cap gets two half windows rather
 than one full window and a sliver. The cap is read from the card's L2
 (`l2_bytes`: ``L2_cache_size // 2`` bytes over ``8 · B`` bytes per
-vertex). On the CPU there is no L2 to size against, so no layout is
-built there; tests force windows either with `window_plan`'s and
-`sweep_layout`'s ``max_window`` or by replacing `l2_bytes`, as the
-reference's tests set its VMEM budget.
+vertex). On the CPU there is no L2 to size against, so an adjacency
+without a hub tail gets no layout there; tests force windows either
+with `window_plan`'s and `sweep_layout`'s ``max_window`` or by replacing
+`l2_bytes`, as the reference's tests set its VMEM budget.
 
-:func:`build_bucketed_ell` builds the CUDA kernel's window-major layout
-(:class:`WindowSegments`): the finite in-edges, the ELL's and its hub
-tail's (`tail.tail_of`), sorted by (source window, destination), with no
-padding, cut into *tiles* of consecutive
-segments of one window that one block of the kernel stages in shared
-memory (at most `TILE_SEGS` segments and `TILE_EDGES` edges, or one
-longer segment alone). The reference package's
-bucketed arrays (``src``, ``w``, ``chunk_win``, ``dk``,
-``num_chunks``), which pad every row to the densest (row, window)
-bucket (4x the adjacency bytes on a random graph), are derived from the
-segments on first use only: the plain version
-``ref.ell_sweep_bucketed_plain`` reads them, the kernel never does.
-They equal ``repro.kernels.ell_relax.layout.build_bucketed_ell``'s
-array for array for the same plan.
+:func:`build_bucketed_ell` builds the layout (:class:`WindowSegments`):
+the finite in-edges, the ELL's and those of the hub tail its caller
+passes, sorted by (source window, destination), with no padding, cut
+into *tiles* of consecutive segments of one window that one block of
+the CUDA kernel stages in shared memory (at most `TILE_SEGS` segments
+and `TILE_EDGES` edges, or one longer segment alone). The windowed
+kernel and its plain version (``ref.ell_sweep_bucketed_plain``) both
+read these segments. For every (row, window) a segment lists the edges
+of the reference package's padded bucket
+(``repro.kernels.ell_relax.layout.build_bucketed_ell``), in its order.
 
 Bit-identity: bucketing only re-partitions each vertex's in-edge
 multiset, the lexicographic (min, max-at-min) fold is insensitive to
@@ -39,10 +35,11 @@ that over exact floats, and dropped ``+inf``-weight padding edges fold
 as the identity.
 
 Everything is built with torch on the adjacency's own device, once per
-graph: `sweep_layout` caches by tensor identity. On the card a tailed
-adjacency gets a layout even where one window covers it, since the
-dense kernel reads the ELL alone. `BucketedEll.counters` holds the
-layout's counts of the tail and of the tiles too long to stage
+graph: `sweep_layout` caches by tensor identity. A tailed adjacency
+gets a layout on every device, of one window where the L2 (or the
+CPU's lack of one) calls for none: its sweeps always run through it,
+since the dense sweeps read the ELL alone. `BucketedEll.counters` holds
+the layout's counts of the tail and of the tiles too long to stage
 (`repro_torch.tracing` hands them to each sweep row).
 
 `BucketedEll.gather_gain` measures how much the windowed kernel's prop
@@ -62,7 +59,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.ell_relax.tail import tail_of
+from repro_torch.kernels.ell_relax.tail import EllTail
 
 #: bytes per vertex and tree of the two staged source planes
 #: (f32 prop + i32 mrank)
@@ -177,18 +174,9 @@ class WindowSegments(NamedTuple):
 class BucketedEll:
     """Source-bucketed pull-ELL adjacency (a plain container).
 
-    - ``segments``: the CUDA kernel's window-major edge list;
-    - ``src``: i32 ``[n_pad, num_chunks · dk]``, window-local in-edge
-      sources (global source minus its window's base);
-    - ``w``: f32 ``[n_pad, num_chunks · dk]``, weights, ``+inf``
-      padding;
-    - ``chunk_win``: i32 ``[n_pad // bn, num_chunks]``, the source
-      window chunk c of vertex tile t gathers from; trailing padding
-      chunks repeat the tile's last real window.
-
-    ``src``, ``w``, ``chunk_win``, ``dk`` and ``num_chunks`` (the
-    reference's format) are built from the segments on first access, and
-    so is ``gather_gain`` (module docstring).
+    ``segments``: the window-major edge list that the CUDA kernel and
+    its plain version read; ``gather_gain`` (module docstring) is built
+    from it on first access.
 
     ``counters`` (`layout_counters`): ``tail_arcs`` and ``split_rows``
     (the hub tail's arcs and its distinct destinations), ``lone_tiles``
@@ -198,8 +186,7 @@ class BucketedEll:
     """
 
     def __init__(self, segments: WindowSegments, *, n: int, deg: int,
-                 window: int, num_windows: int, n_pad: int, bn: int,
-                 dk_max: int, counters: dict):
+                 window: int, num_windows: int, n_pad: int, counters: dict):
         self.segments = segments
         self.counters = counters
         self.n = n
@@ -207,19 +194,10 @@ class BucketedEll:
         self.window = window
         self.num_windows = num_windows
         self.n_pad = n_pad
-        self.bn = bn
-        self.dk_max = dk_max
-        self._padded = None
         self._gain = None
 
     def plan(self) -> WindowPlan:
         return WindowPlan(self.window, self.num_windows, self.n_pad)
-
-    def _reference_format(self):
-        if self._padded is None:
-            self._padded = _pad_buckets(self.segments, self.plan(),
-                                        bn=self.bn, dk_max=self.dk_max)
-        return self._padded
 
     @property
     def gather_gain(self) -> float:
@@ -228,12 +206,6 @@ class BucketedEll:
         if self._gain is None:
             self._gain = _gather_gain(self.segments, self.n)
         return self._gain
-
-    src = property(lambda self: self._reference_format()[0])
-    w = property(lambda self: self._reference_format()[1])
-    chunk_win = property(lambda self: self._reference_format()[2])
-    dk = property(lambda self: self._reference_format()[3])
-    num_chunks = property(lambda self: self._reference_format()[4])
 
     def __repr__(self) -> str:                       # pragma: no cover
         return (f"BucketedEll(n={self.n}, deg={self.deg}, "
@@ -350,78 +322,26 @@ def _gather_gain(seg: WindowSegments, n: int) -> float:
     return (E / S) * (distinct / tile.numel())
 
 
-def _pad_buckets(seg: WindowSegments, plan: WindowPlan, *, bn: int,
-                 dk_max: int):
-    """The reference's padded arrays from the segments: (src, w,
-    chunk_win, dk, num_chunks).
-
-    A segment is one (row, window) bucket, its edges in column order.
-    Per vertex tile, each window's buckets pack into consecutive
-    ``dk``-wide chunks; ``dk`` adapts to the densest bucket.
-    """
-    W, nw, n_pad = plan
-    dev = seg.seg_row.device
-    ntiles = n_pad // bn
-    counts = seg.seg_ptr.diff()
-    rows_s = seg.seg_row.to(torch.int64)
-    wins_s = torch.repeat_interleave(
-        torch.arange(nw, device=dev),
-        torch.tensor(seg.win_segs, device=dev).diff())
-    maxc = int(counts.max()) if counts.numel() else 0
-    dk = max(8, min(int(dk_max), -(-max(maxc, 1) // 8) * 8))
-
-    tile_max = torch.zeros(ntiles * nw, dtype=torch.int64, device=dev)
-    tile_max.scatter_reduce_(0, rows_s // bn * nw + wins_s, counts, "amax")
-    chunks_tw = (-(-tile_max // dk)).view(ntiles, nw)
-    ends = torch.cumsum(chunks_tw, 1)
-    num_chunks = max(1, int(ends[:, -1].max()))
-    slots = torch.arange(num_chunks, device=dev).expand(ntiles, -1)
-    chunk_win = torch.searchsorted(ends, slots.contiguous(), right=True)
-    last = ((chunks_tw > 0) * torch.arange(nw, device=dev)).amax(1)
-    chunk_win = torch.where(chunk_win >= nw, last[:, None], chunk_win)
-
-    # each edge's segment, and its index inside it
-    seg_of = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=dev), counts)
-    pos = torch.arange(seg_of.numel(), device=dev) - seg.seg_ptr[seg_of]
-    rows, wins = rows_s[seg_of], wins_s[seg_of]
-    dst = (ends - chunks_tw)[rows // bn, wins] * dk + pos
-    src_b = torch.zeros((n_pad, num_chunks * dk), dtype=torch.int32,
-                        device=dev)
-    w_b = torch.full((n_pad, num_chunks * dk), torch.inf,
-                     dtype=torch.float32, device=dev)
-    src_b[rows, dst] = (seg.edge_src.to(torch.int64)
-                        - wins * W).to(torch.int32)
-    w_b[rows, dst] = seg.edge_w
-    return src_b, w_b, chunk_win.to(torch.int32), dk, num_chunks
-
-
-def tail_counters(tail) -> dict:
-    """The hub tail's ``tail_arcs`` and ``split_rows`` (its distinct
-    destinations) for an `EllTail` or None."""
-    if tail is None:
-        return {"tail_arcs": 0, "split_rows": 0}
-    return {"tail_arcs": int(tail.dst.numel()),
-            "split_rows": int(torch.unique_consecutive(tail.dst).numel())}
-
-
-def layout_counters(seg: WindowSegments, tail=None) -> dict:
-    """`BucketedEll.counters` of these segments, built with ``tail``
-    (an `EllTail` or None)."""
+def layout_counters(seg: WindowSegments,
+                    tail: Optional[EllTail] = None) -> dict:
+    """`BucketedEll.counters` of these segments, built with ``tail``."""
     ne = seg.tile_edges.diff()
     lone = ne > TILE_EDGES
     lengths = seg.seg_ptr.diff()
-    return {**tail_counters(tail),
+    return {"tail_arcs": 0 if tail is None else int(tail.dst.numel()),
+            "split_rows": 0 if tail is None else int(
+                torch.unique_consecutive(tail.dst).numel()),
             "lone_tiles": int(lone.sum()),
             "lone_tile_edges": int(ne[lone].sum()),
             "longest_segment": int(lengths.max()) if lengths.numel() else 0}
 
 
 def build_bucketed_ell(ell_src: torch.Tensor, ell_w: torch.Tensor,
-                       plan: WindowPlan, *, bn: int = 128,
-                       dk_max: int = 128) -> BucketedEll:
-    """Bucket a pull ELL and its hub tail by source window, on the
-    adjacency's device. ``+inf``-weight padding edges are dropped."""
+                       plan: WindowPlan, *,
+                       tail: Optional[EllTail] = None) -> BucketedEll:
+    """Bucket a pull ELL and its hub ``tail`` (None: the adjacency has
+    none) by source window, on the adjacency's device. ``+inf``-weight
+    padding edges are dropped."""
     src = ell_src.to(torch.int64)
     w = ell_w.to(torch.float32)
     n, deg = src.shape
@@ -431,15 +351,13 @@ def build_bucketed_ell(ell_src: torch.Tensor, ell_w: torch.Tensor,
     rows, cols = torch.nonzero(torch.isfinite(w), as_tuple=True)
     srcs, ws = src[rows, cols], w[rows, cols]
     del src, w, cols
-    tail = tail_of(ell_src, ell_w)
     if tail is not None:
         rows = torch.cat([rows, tail.dst.to(torch.int64)])
         srcs = torch.cat([srcs, tail.src.to(torch.int64)])
         ws = torch.cat([ws, tail.w.to(torch.float32)])
     seg = _segments(rows, srcs, ws, srcs // W, n, nw)
     return BucketedEll(seg, n=n, deg=deg, window=W, num_windows=nw,
-                       n_pad=n_pad, bn=bn, dk_max=dk_max,
-                       counters=layout_counters(seg, tail))
+                       n_pad=n_pad, counters=layout_counters(seg, tail))
 
 
 _CACHE_MAX = 4
@@ -457,13 +375,16 @@ def clear_layout_cache() -> None:
 
 
 def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
-                 bn: int = 128, max_window: Optional[int] = None,
-                 dk_max: int = 128) -> Optional[BucketedEll]:
-    """The bucketed layout a sweep over this adjacency runs, relaxing
-    ``bb`` trees at a time; None when one window covers an adjacency
-    with no hub tail (the dense kernel) or when it lies on the CPU and
-    no ``max_window`` forces windows. On the card a tailed adjacency
-    always gets one, the dense kernel reading the ELL alone.
+                 tail: Optional[EllTail] = None, bn: int = 128,
+                 max_window: Optional[int] = None) -> Optional[BucketedEll]:
+    """The bucketed layout a sweep over this adjacency, its pull ELL and
+    its hub ``tail`` (None: it has none), runs, relaxing ``bb`` trees at
+    a time. The windows are planned from the card's L2, or from
+    ``max_window`` where given. With a tail there is a layout on every
+    device, of one window where the plan calls for no more (or where
+    there is no L2 to plan from, on the CPU). Without one: None where
+    one window covers the adjacency (the dense sweep) or no L2 plans
+    windows.
 
     Cached by adjacency and tail identity (id-keyed, weakref-validated,
     small LRU): drivers and policies call it once per graph.
@@ -471,12 +392,12 @@ def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
     n = int(ell_src.shape[0])
     plan = (layout_plan(n, ell_src.device, bb=bb) if max_window is None
             else window_plan(n, bb=bb, bn=bn, max_window=max_window))
-    tail = tail_of(ell_src, ell_w)
-    if plan is None or (plan.num_windows <= 1 and (
-            tail is None or ell_src.device.type != "cuda")):
+    if tail is None and (plan is None or plan.num_windows <= 1):
         return None
+    if plan is None:                               # one window over all n
+        plan = window_plan(n, bb=bb, bn=bn, max_window=n + bn)
     anchors = (ell_src, ell_w, None if tail is None else tail.dst)
-    key = tuple(map(id, anchors)) + (plan, bn, dk_max)
+    key = tuple(map(id, anchors)) + (plan, bn)
     hit = _cache.get(key)
     if hit is not None:
         refs, layout = hit
@@ -484,7 +405,7 @@ def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
             _cache.move_to_end(key)
             return layout
         del _cache[key]                        # id reused by a new tensor
-    layout = build_bucketed_ell(ell_src, ell_w, plan, bn=bn, dk_max=dk_max)
+    layout = build_bucketed_ell(ell_src, ell_w, plan, tail=tail)
     _cache[key] = (tuple(_no_ref if a is None else weakref.ref(a)
                          for a in anchors), layout)
     while len(_cache) > _CACHE_MAX:

@@ -1,18 +1,21 @@
 """`ell_sweep`: the one entry point the sweep driver calls.
 
-The route is decided once per fixpoint, by `resolve_sweep_backend`
-from the tensors' device and the window plan, and handed to every
-sweep as ``layout``; `ell_sweep` does not decide again. Routes, with no
+The route is decided once per fixpoint, by `resolve_sweep_backend`,
+and handed to every sweep as ``layout``; `ell_sweep` does not decide
+again. An adjacency with a hub tail always has a layout, built by the
+tail's owner (`sssp.relax.ell_layout(..., tail=)`). Routes, with no
 fallback from one to another:
 
 - a CUDA tensor with a layout: the source-windowed kernel
-  (`windowed.ell_relax_windowed`), whose layout holds the adjacency's
-  hub tail too;
+  (`windowed.ell_relax_windowed`), whose segments hold the
+  adjacency's hub tail too;
 - a CUDA tensor without one (the batch's two source planes fit half
   the card's L2, and the adjacency has no hub tail): the dense kernel
-  (`ell_relax.ell_relax`), which handles any B, n and deg itself;
-- a CPU tensor: the plain version (`ref.ell_sweep_bucketed_plain` with
-  a layout, else `ref.ell_sweep_plain`, which folds the tail).
+  (`ell_relax.ell_relax`), which reads the ELL alone and handles any
+  B, n and deg itself;
+- a CPU tensor: the matching plain version
+  (`ref.ell_sweep_bucketed_plain` with a layout, which folds the same
+  segments as the windowed kernel, else `ref.ell_sweep_plain`).
 """
 
 from __future__ import annotations
@@ -31,11 +34,11 @@ def resolve_sweep_backend(ell_src, ell_w, batch: int, *,
                           layout: Optional[BucketedEll] = None
                           ) -> Optional[BucketedEll]:
     """The layout sweeps of ``batch`` trees over this adjacency run on,
-    or None for the dense route (kernel or plain by device). A given
-    multi-window ``layout`` wins; otherwise the card's L2 and the
-    adjacency's hub tail decide (`sweep_layout`; the CPU has no L2, so
-    it gets no layout)."""
-    if layout is not None and layout.num_windows > 1:
+    or None for the dense route (kernel or plain by device): ``layout``
+    where given, whatever its window count; otherwise the card's L2
+    decides (`sweep_layout` without a tail; the CPU has no L2, so it
+    gets none)."""
+    if layout is not None:
         return layout
     return sweep_layout(ell_src, ell_w, bb=batch)
 

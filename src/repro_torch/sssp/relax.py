@@ -21,7 +21,8 @@ Execution follows the reference driver sweep for sweep, so ``dist``,
   on the route resolved once per call: the source-windowed layout
   given as ``layout=``, or the one the card's L2 calls for (built and
   cached when the source planes outgrow half of it), else the dense
-  sweep;
+  sweep, which reads the ELL alone; an adjacency with a hub tail is
+  always given its layout (`ell_layout` with ``tail=``);
 - sweeps are frontier-gated on the kernel path: only vertices whose
   (dist, mrank) changed last sweep, plus vertices that just unblocked,
   propagate; trees whose frontier is empty are retired (``alive``);
@@ -46,6 +47,7 @@ from repro_torch import tracing
 from repro_torch.kernels.ell_relax import (BucketedEll, ell_sweep,
                                            resolve_sweep_backend,
                                            sweep_layout)
+from repro_torch.kernels.ell_relax.tail import EllTail
 
 BlockFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -53,12 +55,15 @@ DEFAULT_CHECK_EVERY = 4
 
 
 def ell_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *,
-               batch: int) -> Optional[BucketedEll]:
+               batch: int, tail: Optional[EllTail] = None
+               ) -> Optional[BucketedEll]:
     """Build (and cache) the source-bucketed layout for sweeps of
-    ``batch`` trees over this adjacency, or None when one window of the
-    card's L2 covers it (and on the CPU) — the driver-facing alias of
+    ``batch`` trees over this adjacency and its hub ``tail`` (None: it
+    has none; `graphs.DeviceGraph.tail`). With a tail there is one on
+    every device; without, None when one window of the card's L2 covers
+    the adjacency (and on the CPU) — the driver-facing alias of
     `repro_torch.kernels.ell_relax.sweep_layout`."""
-    return sweep_layout(ell_src, ell_w, bb=batch)
+    return sweep_layout(ell_src, ell_w, bb=batch, tail=tail)
 
 
 class RelaxState(NamedTuple):
@@ -103,7 +108,9 @@ def batched_sssp_maxrank(ell_src: torch.Tensor, ell_w: torch.Tensor,
         retire converged trees (default: on with the kernel).
       layout: optional `BucketedEll` (see `ell_layout`) selecting the
         source-windowed sweep; on the card one is built and cached when
-        the source planes outgrow one window.
+        the source planes outgrow one window. Required where the
+        adjacency has a hub tail: build it with ``ell_layout(...,
+        tail=)``. Without a layout the sweeps read the ELL alone.
     All tensors lie on one device; CUDA means the kernel runs.
     """
     n = ell_src.shape[0]

@@ -34,7 +34,8 @@ How to read it::
   (trees with a nonempty set), ``active_pairs`` (its (tree, vertex)
   pairs), ``active_edges`` (the sum of those sources' finite
   out-degrees: the (tree, edge) folds that can change a value), and
-  ``edges`` (the adjacency's finite arcs, its hub tail's included);
+  ``edges`` (the adjacency's finite arcs: its layout's segments, the
+  hub tail's included, or with no layout its ELL's);
   the layout's counters (`kernels.ell_relax.layout.BucketedEll.counters`):
   ``tail_arcs`` and ``split_rows`` (the hub tail's arcs and
   destinations), ``lone_tiles`` and ``lone_tile_edges`` (the tiles of
@@ -42,9 +43,9 @@ How to read it::
   every sweep folds each such tile with its whole block from device
   memory, so these counts are also that fold's engagement, and
   ``gated_windows`` below says where it read the mask first) and
-  ``longest_segment`` (with no layout:
-  the tail's two counted from the tail, no lone tile, and
-  ``longest_segment`` None); where the windowed kernel
+  ``longest_segment`` (with no layout, the adjacency has no tail, since
+  a tailed one always sweeps through its layout: 0 tail arcs, no lone
+  tile, and ``longest_segment`` None); where the windowed kernel
   packed its activity mask (`kernels.ell_relax.windowed.mask_pays`):
   ``mask_bits`` (the set bits: (live tree, source) pairs whose prop is
   finite), ``gated_windows`` (the (window, tree group) pairs that took
@@ -82,9 +83,6 @@ from typing import List, Optional, Tuple
 import torch
 import torch.autograd.profiler as _profiler
 
-from repro_torch.kernels.ell_relax.layout import tail_counters
-from repro_torch.kernels.ell_relax.tail import tail_of
-
 #: adjacencies whose out-degrees are kept (as the sweep layouts are)
 _DEGREE_CACHE_MAX = 4
 #: sweeps a device buffer of per-sweep counts holds
@@ -94,8 +92,9 @@ _PAIR = 1 << 32
 #: a sweep's activity-mask fields, None where no mask was packed
 _MASK_FIELDS = ("mask_bits", "gated_windows", "windows")
 _NO_MASK = (None, None, None)
-#: the tile counters of a sweep that runs no layout
-_NO_TILES = {"lone_tiles": 0, "lone_tile_edges": 0, "longest_segment": None}
+#: the layout counters of a sweep that runs no layout (and so no tail)
+_NO_LAYOUT = {"tail_arcs": 0, "split_rows": 0, "lone_tiles": 0,
+              "lone_tile_edges": 0, "longest_segment": None}
 
 
 def active() -> bool:
@@ -260,8 +259,7 @@ class Recorder:
         if not _profiler._is_profiler_enabled:
             return None
         packed, edges = self._out_degree(ell_src, ell_w, layout)
-        counters = (layout.counters if layout is not None else
-                    {**tail_counters(tail_of(ell_src, ell_w)), **_NO_TILES})
+        counters = _NO_LAYOUT if layout is None else layout.counters
         rows = SweepRows(self, ell_src.device, packed, edges, counters)
         self._sweep_calls.append(rows)
         return rows
@@ -276,9 +274,9 @@ class Recorder:
     def _out_degree(self, ell_src, ell_w, layout) -> Tuple[torch.Tensor,
                                                           int]:
         """i64 [n] ``2**32 + finite out-degree`` (the term `SweepRows`
-        sums) and the finite arc count, counted from the finite
-        in-edges' sources (the hub tail's included) once per
-        adjacency."""
+        sums) and the finite arc count, counted once per adjacency from
+        the sources of its finite in-edges: the layout's segments (the
+        hub tail's included) or, with no layout, the ELL's."""
         key = (id(ell_src), id(ell_w))
         hit = self._degrees.get(key)
         if hit is not None:
@@ -287,13 +285,8 @@ class Recorder:
                 self._degrees.move_to_end(key)
                 return packed, edges
             del self._degrees[key]              # id reused by a new tensor
-        if layout is not None:
-            src = layout.segments.edge_src
-        else:
-            src = ell_src[torch.isfinite(ell_w)]
-            tail = tail_of(ell_src, ell_w)
-            if tail is not None:
-                src = torch.cat([src, tail.src])
+        src = (ell_src[torch.isfinite(ell_w)] if layout is None
+               else layout.segments.edge_src)
         edges = int(src.shape[0])
         if edges >= _PAIR:
             raise ValueError(f"tracing: {edges} arcs do not fit the low "

@@ -13,8 +13,8 @@ Imports nothing of JAX, so it runs where only PyTorch is installed::
   segments past the tile's edge buffer (folded by a whole block) just
   past it, of a ragged length, and past kron22's longest in three
   windows, at 1 to 65 trees, gated and ungated; such an
-  adjacency sweeps the windowed kernel even in one window, the dense
-  kernel refuses it, and its PLaNT build equals the CPU's;
+  adjacency sweeps the windowed kernel even in one window, through the
+  layout built with its tail, and its PLaNT build equals the CPU's;
 - a PLaNT build on the card (kernel path: gated sweeps, stride 4)
   gives the same label table and answers as the CPU build (plain path:
   ungated, stride 1), and its main path launches the dense sweep and
@@ -389,7 +389,8 @@ def test_ell_relax_windowed_on_a_tailed_layout_equals_plain(
     g = tailed_graph(n)
     a = device_arrays(g, degree_ranking(g), cuda_device)
     assert a.tail is not None and g.max_deg_in == 128
-    lay = sweep_layout(a.ell_src, a.ell_w, bb=B, max_window=n // 2)
+    lay = sweep_layout(a.ell_src, a.ell_w, bb=B, max_window=n // 2,
+                       tail=a.tail)
     assert lay.num_windows == 2
     assert lay.counters["lone_tiles"] >= 2
     assert lay.counters["tail_arcs"] == g.tail_arcs
@@ -405,7 +406,7 @@ def test_ell_relax_windowed_on_a_tailed_layout_equals_plain(
                           for x in (dist, mrank, alive))
     kd, km = ell_relax_windowed(dist, mrank, dist, alive, lay, a.rank)
     pd, pm = ell_sweep_plain(dist, mrank, dist, alive, a.ell_src, a.ell_w,
-                             a.rank)
+                             a.rank, tail=a.tail)
     assert torch.equal(kd, pd) and torch.equal(km, pm)
 
 
@@ -425,12 +426,12 @@ LONE_HUBS = {
 
 def lone_adjacency(rng, hubs, device):
     """A pull ELL of width 40 (three quarters finite, sources anywhere)
-    over three windows of `LONE_W`, and a hub tail bound to it holding
+    over three windows of `LONE_W`, and a hub tail beside it holding
     ``hubs`` (`LONE_HUBS`): a hub's edges in a window are distinct
     sources of that window, and its ELL keeps no edge there, so that
     each such segment has exactly the given length. Weights are small
-    integers, so that candidates tie."""
-    from repro_torch.kernels.ell_relax.tail import EllTail, attach
+    integers, so that candidates tie. Returns (ell_src, ell_w, tail)."""
+    from repro_torch.kernels.ell_relax.tail import EllTail
     n, deg = 3 * LONE_W, 40
     ell_src = rng.integers(0, n, (n, deg)).astype(np.int32)
     ell_w = np.where(rng.random((n, deg)) < 0.75,
@@ -448,8 +449,7 @@ def lone_adjacency(rng, hubs, device):
         np.concatenate(dst).astype(np.int32), src,
         rng.integers(1, 9, src.size).astype(np.float32))))
     es, ew = (torch.as_tensor(x, device=device) for x in (ell_src, ell_w))
-    attach(es, ew, tail)
-    return es, ew
+    return es, ew, tail
 
 
 def lone_state(rng, B, n, density, device):
@@ -500,10 +500,10 @@ def test_ell_relax_windowed_folds_lone_segments_exactly(cuda_device, hubs, B,
     (gated where the mask pays) and dense (ungated)."""
     rng = np.random.default_rng(B * 1000 + int(density * 100)
                                 + len(LONE_HUBS[hubs]))
-    es, ew = lone_adjacency(rng, LONE_HUBS[hubs], cuda_device)
+    es, ew, tail = lone_adjacency(rng, LONE_HUBS[hubs], cuda_device)
     n = es.shape[0]
     dist, mrank, alive, rank = lone_state(rng, B, n, density, cuda_device)
-    lay = sweep_layout(es, ew, bb=B, max_window=LONE_W)
+    lay = sweep_layout(es, ew, bb=B, max_window=LONE_W, tail=tail)
     assert lay.num_windows == 3 and lay.window == LONE_W
     counts = [c for cs in LONE_HUBS[hubs].values() for c in cs if c]
     s = lay.segments
@@ -516,34 +516,34 @@ def test_ell_relax_windowed_folds_lone_segments_exactly(cuda_device, hubs, B,
         # sparse: every (window, group) gated; dense: none
         assert gated.all() if density < 0.5 else not gated.any()
     kd, km = ell_relax_windowed(dist, mrank, dist, alive, lay, rank)
-    pd, pm = ell_sweep_plain(dist, mrank, dist, alive, es, ew, rank)
+    pd, pm = ell_sweep_plain(dist, mrank, dist, alive, es, ew, rank,
+                             tail=tail)
     assert torch.equal(kd, pd) and torch.equal(km, pm)
 
 
 def test_tailed_adjacency_runs_windowed_on_the_card(cuda_device):
     """A tailed graph that one window covers still sweeps the windowed
-    kernel on the card (the dense kernel reads the ELL alone and
-    refuses it) and relaxes to the CPU's fixpoint; its PLaNT build
+    kernel on the card, through the one-window layout built with its
+    tail (the dense kernel reads the ELL alone), and relaxes to the
+    CPU's fixpoint through the CPU's one-window layout; its PLaNT build
     equals the CPU build."""
     from repro_torch.graphs import device_arrays
+    from repro_torch.sssp import ell_layout
     g = tailed_graph(3000, seed=3)
     rank = degree_ranking(g)
     a = device_arrays(g, rank, cuda_device)
     c = device_arrays(g, rank, "cpu")
     roots = np.argsort(-rank)[:8]
-    with pytest.raises(ValueError, match="hub tail"):
-        ell_relax(*(torch.zeros((2, g.n), device=cuda_device),
-                    torch.zeros((2, g.n), dtype=torch.int32,
-                                device=cuda_device),
-                    torch.zeros((2, g.n), device=cuda_device),
-                    torch.ones(2, dtype=torch.bool, device=cuda_device)),
-                  a.ell_src, a.ell_w, a.rank)
+    lay = ell_layout(a.ell_src, a.ell_w, batch=8, tail=a.tail)
+    cpu_lay = ell_layout(c.ell_src, c.ell_w, batch=8, tail=c.tail)
+    assert lay.num_windows == cpu_lay.num_windows == 1
     ELL_RELAX.launches = WINDOWED_KERNEL.launches = 0
     st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank,
-                              torch.as_tensor(roots, device=cuda_device))
+                              torch.as_tensor(roots, device=cuda_device),
+                              layout=lay)
     assert WINDOWED_KERNEL.launches > 0 and ELL_RELAX.launches == 0
     ref = batched_sssp_maxrank(c.ell_src, c.ell_w, c.rank,
-                               torch.as_tensor(roots))
+                               torch.as_tensor(roots), layout=cpu_lay)
     assert torch.equal(st.dist.cpu(), ref.dist)
     assert torch.equal(st.mrank.cpu(), ref.mrank)
     plan = BuildPlan(algo="plant", batch=8)

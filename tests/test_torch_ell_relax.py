@@ -240,6 +240,42 @@ def _rand_ell(rng, n, deg, dens=0.6):
     return es, ew
 
 
+def segment_buckets(lay):
+    """The layout's segments as (window, row, source, weight) an edge,
+    grouped by (window, row), each group in its segment's order."""
+    s = lay.segments
+    length = s.seg_ptr.diff().numpy()
+    row = np.repeat(s.seg_row.numpy(), length)
+    win = np.repeat(np.repeat(np.arange(lay.num_windows),
+                              np.diff(s.win_segs)), length)
+    order = np.lexsort((row, win))               # stable within a group
+    return tuple(x[order] for x in (win, row, s.edge_src.numpy(),
+                                    s.edge_w.numpy()))
+
+
+def reference_buckets(ref_lay, n):
+    """The finite entries of the reference package's padded buckets as
+    (window, row, global source, weight), grouped by (window, row), each
+    group in the bucket's order: chunk by chunk, slot by slot."""
+    w = np.asarray(ref_lay.w)[:n]
+    rows, cols = np.nonzero(np.isfinite(w))
+    win = np.asarray(ref_lay.chunk_win)[rows // ref_lay.bn,
+                                        cols // ref_lay.dk]
+    src = np.asarray(ref_lay.src)[rows, cols] + win * ref_lay.window
+    order = np.lexsort((rows, win))
+    return tuple(x[order] for x in (win, rows, src, w[rows, cols]))
+
+
+def assert_segments_hold_buckets(lay, ref_lay):
+    """For every (row, window), the segment's (source, weight) list is
+    the finite entries of the reference's bucket, in its order."""
+    assert lay.plan() == ref_lay.plan()
+    for name, a, b in zip(("window", "row", "source", "weight"),
+                          segment_buckets(lay),
+                          reference_buckets(ref_lay, lay.n)):
+        assert np.array_equal(a, b), name
+
+
 @pytest.mark.parametrize("n,deg,mw", [(255, 7, 128), (257, 9, 128),
                                       (300, 5, 100), (513, 40, 200)])
 def test_bucketed_arrays_equal_reference(n, deg, mw):
@@ -250,30 +286,20 @@ def test_bucketed_arrays_equal_reference(n, deg, mw):
                              plan)
     want = ref_ell.build_bucketed_ell(es, ew, ref_ell.window_plan(
         n, max_window=mw))
-    for name in ("src", "w", "chunk_win"):
-        a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
-        assert a.dtype == b.dtype and np.array_equal(a, b), name
-    assert (got.dk, got.num_chunks, got.plan()) == (
-        want.dk, want.num_chunks, want.plan())
+    assert_segments_hold_buckets(got, want)
 
 
 def test_bucketed_layout_conserves_edges():
-    """Both the reference-format buckets and the kernel's window-major
-    segments hold each row's finite in-edge multiset exactly."""
+    """The window-major segments hold each row's finite in-edge multiset
+    exactly, and the reference's padded buckets row by window."""
     n = 700
     es, ew = _rand_ell(np.random.default_rng(7), n, 9, dens=0.4)
     ew[5] = np.inf                                  # a row with no edge
     lay = sweep_layout(torch.as_tensor(es), torch.as_tensor(ew), bb=1,
                        max_window=256)
     assert lay is not None and lay.num_windows == 3
-    src_b, w_b = lay.src.numpy(), lay.w.numpy()
-    cw = lay.chunk_win.numpy()
-    assert cw.shape == (lay.n_pad // lay.bn, lay.num_chunks)
-    assert ((cw >= 0) & (cw < lay.num_windows)).all()
-    fin = np.isfinite(w_b)
-    assert ((src_b >= 0) & (src_b < lay.window))[fin].all()
-    gsrc = src_b + np.repeat(np.repeat(cw, lay.bn, 0), lay.dk, 1) \
-        * lay.window
+    assert_segments_hold_buckets(lay, ref_ell.sweep_layout(
+        es, ew, max_window=256))
     s = lay.segments
     row, ptr = s.seg_row.numpy(), s.seg_ptr.numpy()
     flags = s.seg_flags.numpy()
@@ -289,12 +315,10 @@ def test_bucketed_layout_conserves_edges():
     for v in range(n):
         orig = sorted((int(a), float(b)) for a, b in zip(es[v], ew[v])
                       if np.isfinite(b))
-        got = sorted((int(a), float(b)) for a, b in
-                     zip(gsrc[v][fin[v]], w_b[v][fin[v]]))
         segs = by_row.get(v, [])
         kern = sorted((int(esrc[e]), float(ewt[e])) for i in segs
                       for e in range(ptr[i], ptr[i + 1]))
-        assert got == orig == kern, v
+        assert orig == kern, v
         if segs:
             assert [flags[i] & 1 for i in segs] == [1] + [0] * (len(segs)
                                                                 - 1)
@@ -302,7 +326,6 @@ def test_bucketed_layout_conserves_edges():
                 + [1]
     bare = np.flatnonzero(~np.isfinite(ew).any(axis=1))
     assert 5 in bare and s.bare_rows.tolist() == bare.tolist()
-    assert not fin[n:].any()
 
 
 def _tiled_ell(kind):
@@ -474,12 +497,14 @@ def test_bucketed_plain_equals_reference(n):
 
 
 def test_bucketed_plain_row_blocks(monkeypatch):
-    """Row blocking of the plain version changes nothing."""
+    """Folding the segments' edges in blocks changes nothing, blocks
+    that cut segments included."""
     rng = np.random.default_rng(4)
     state = as_torch(sweep_state(rng, 3, 900, 11))
     lay = sweep_layout(state[4], state[5], bb=3, max_window=256)
     whole = ell_sweep_bucketed_plain(*state[:4], lay, state[6])
-    monkeypatch.setattr(port_ref, "BLOCK_ELEMS", 1)  # one tile per block
+    assert lay.segments.edge_src.numel() > 20 * 97
+    monkeypatch.setattr(port_ref, "BLOCK_ELEMS", 3 * 97)  # 97 edges each
     blocked = ell_sweep_bucketed_plain(*state[:4], lay, state[6])
     assert torch.equal(whole[0], blocked[0])
     assert torch.equal(whole[1], blocked[1])
@@ -593,18 +618,6 @@ def test_windowed_build_equals_reference(monkeypatch):
     assert BuildReport.from_dict(port.report.to_dict()).notes == notes
     for a, b in zip(port.table, unforced.table):
         assert torch.equal(a, b)
-
-
-def test_reference_format_arrays_built_on_first_use():
-    """The kernel's segments are built with the layout; the padded
-    reference-format arrays only when something reads them."""
-    rng = np.random.default_rng(9)
-    es, ew = (torch.as_tensor(x) for x in _rand_ell(rng, 300, 5))
-    lay = build_bucketed_ell(es, ew, window_plan(300, max_window=128))
-    assert lay._padded is None
-    t = as_torch(sweep_state(rng, 2, 300, 5))
-    ell_sweep(*t[:4], es, ew, t[6], layout=lay)
-    assert lay._padded is not None and lay.src.shape[0] == lay.n_pad
 
 
 def test_route_resolved_once_per_fixpoint(monkeypatch):

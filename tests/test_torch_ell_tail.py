@@ -7,15 +7,16 @@ benchmark's plain reference.
    row in order, and the port graph is the reference's capped
    (`cap_ell`, `interop.graph`); a graph under the cap keeps the
    reference's arrays and its layout; the source-windowed layout of a
-   tailed graph holds the reference layout's arrays;
-2. sweeps: PLaNT on a tailed graph, through the plain dense route and
-   a forced windowed route, equals the reference package's trees and
-   the benchmark's canonical labels;
+   tailed graph holds the reference layout's buckets; a tailed
+   adjacency takes a layout on every device, the CPU included;
+2. sweeps: the plain sweeps of ELL + tail and of its layout equal the
+   reference's sweep over its uncapped ELL; PLaNT on a tailed graph,
+   through a one-window layout and a forced windowed one, equals the
+   reference package's trees and the benchmark's canonical labels;
 3. every construction path (PLaNT, GLL, the hybrid, DGLL, distributed
    PLaNT, repair) on a tailed graph equals its build of the same arcs
    in one ELL as wide as the hub's degree, and the directed build the
-   reference's; the dense kernel refuses a tailed adjacency; the build
-   fingerprint covers the tail;
+   reference's; the build fingerprint covers the tail;
 4. the recorder counts the tail's arcs and the lone tiles.
 """
 
@@ -32,6 +33,7 @@ import jax.numpy as jnp
 
 import repro.graphs as rg
 from repro.core.plant import plant_batch as ref_plant_batch
+from repro.kernels.ell_relax import ell_sweep_ref as ref_sweep_ref
 from repro.engine.policies import build_fingerprint as ref_fingerprint
 from repro.index import BuildPlan as RefPlan
 from repro.index import build as ref_build
@@ -43,12 +45,12 @@ from repro_torch.engine.policies import build_fingerprint
 from repro_torch.graphs import (ELL_CAP, cap_ell, device_adjacency,
                                 device_arrays, from_edges)
 from repro_torch.index import BuildPlan, build
-from repro_torch.kernels.ell_relax import (ell_relax, ell_sweep,
-                                           sweep_layout)
+from repro_torch.kernels.ell_relax import (ell_sweep_bucketed_plain,
+                                           ell_sweep_plain, sweep_layout)
 from repro_torch.kernels.ell_relax.layout import TILE_EDGES
-from repro_torch.kernels.ell_relax.tail import tail_of
 from repro_torch.parallel import NodeMesh
 from repro_torch.sssp import relax
+from test_torch_ell_relax import assert_segments_hold_buckets
 
 torch.set_num_threads(1)
 
@@ -143,7 +145,7 @@ def test_graph_under_the_cap_keeps_its_arrays_and_layout():
         a, b = getattr(g, name), getattr(r, name)
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
     a = device_arrays(g, DEGREE.rank(n, s, d), "cpu")
-    assert a.tail is None and tail_of(a.ell_src, a.ell_w) is None
+    assert a.tail is None
     lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=256)
     bare = sweep_layout(torch.as_tensor(r.ell_src), torch.as_tensor(r.ell_w),
                         bb=4, max_window=256)
@@ -155,40 +157,94 @@ def test_graph_under_the_cap_keeps_its_arrays_and_layout():
 
 
 def test_tailed_layout_holds_the_reference_layout():
-    """The windowed layout of ELL + tail has the reference layout's
-    arrays, built from its padded ELL: each segment lists its row's
+    """The windowed layout of ELL + tail holds the reference layout's
+    buckets, built from its padded ELL: each segment lists its row's
     edges in the padded row's order."""
     import repro.kernels.ell_relax as ref_ell
     n, s, d, w = kron_edges(10)
     g, r = from_edges(n, s, d, w), rg.from_edges(n, s, d, w)
     es, ew, tail = device_adjacency(g, "cpu")
-    lay = sweep_layout(es, ew, bb=4, max_window=256)
+    lay = sweep_layout(es, ew, bb=4, max_window=256, tail=tail)
     want = ref_ell.sweep_layout(r.ell_src, r.ell_w, max_window=256)
     assert lay.num_windows == want.num_windows > 1
-    for name in ("src", "w", "chunk_win"):
-        a, b = getattr(lay, name).numpy(), np.asarray(getattr(want, name))
-        assert a.dtype == b.dtype and np.array_equal(a, b), name
-    assert (lay.dk, lay.num_chunks) == (want.dk, want.num_chunks)
+    assert_segments_hold_buckets(lay, want)
     assert lay.counters["tail_arcs"] == g.tail_arcs
     assert lay.counters["split_rows"] == len(np.unique(g.tail_dst))
-    # the cache tells a tailed adjacency from a bare copy of its ELL
-    assert sweep_layout(es, ew, bb=4, max_window=256) is lay
-    bare = sweep_layout(es.clone(), ew, bb=4, max_window=256)
+    # the cache tells the tailed adjacency from its ELL alone
+    assert sweep_layout(es, ew, bb=4, max_window=256, tail=tail) is lay
+    bare = sweep_layout(es, ew, bb=4, max_window=256)
     assert bare.segments.edge_src.numel() == int(np.isfinite(g.ell_w).sum())
+
+
+def test_tailed_adjacency_takes_its_layout_on_every_device():
+    """With its tail a Kronecker adjacency gets a layout on the CPU too,
+    of one window, holding the ELL's and the tail's arcs; without
+    ``tail=`` there is none. `sweep_layout` keeps a layout built with
+    the tail apart from one built without."""
+    n, s, d, w = kron_edges(10)
+    g = from_edges(n, s, d, w)
+    es, ew, tail = device_adjacency(g, "cpu")
+    assert tail is not None
+    lay = relax.ell_layout(es, ew, batch=4, tail=tail)
+    assert lay is not None and lay.num_windows == 1 and lay.window >= n
+    assert lay.segments.edge_src.numel() == g.m
+    assert lay.counters["tail_arcs"] == g.tail_arcs
+    assert relax.ell_layout(es, ew, batch=4, tail=tail) is lay
+    assert relax.ell_layout(es, ew, batch=4) is None
+    with_tail = sweep_layout(es, ew, bb=4, max_window=256, tail=tail)
+    without = sweep_layout(es, ew, bb=4, max_window=256)
+    assert with_tail is not without
+    assert with_tail.segments.edge_src.numel() == g.m
+    assert without.counters["tail_arcs"] == 0
+
+
+@pytest.mark.parametrize("windows", ["one", "several"])
+def test_plain_sweeps_of_a_tailed_adjacency_equal_the_reference(windows):
+    """On Kronecker states, the plain sweep of ELL + tail and the plain
+    windowed sweep over the tailed layout both equal the reference
+    package's sweep over its uncapped ELL; retired trees pass
+    through."""
+    n, s, d, w = kron_edges(10)
+    g, r = from_edges(n, s, d, w), rg.from_edges(n, s, d, w)
+    es, ew, tail = device_adjacency(g, "cpu")
+    lay = (relax.ell_layout(es, ew, batch=8, tail=tail) if windows == "one"
+           else sweep_layout(es, ew, bb=8, max_window=256, tail=tail))
+    assert (lay.num_windows == 1) == (windows == "one")
+    rng = np.random.default_rng(len(windows))
+    B = 8
+    dist = np.where(rng.random((B, n)) < 0.4, rng.integers(0, 9, (B, n)),
+                    np.inf).astype(np.float32)
+    mrank = np.where(np.isfinite(dist), rng.integers(0, n, (B, n)),
+                     -1).astype(np.int32)
+    prop = np.where(rng.random((B, n)) < 0.7, dist, np.inf).astype(
+        np.float32)
+    rank = rng.permutation(n).astype(np.int32)
+    alive = np.arange(B) != 3
+    want = [np.asarray(x) for x in ref_sweep_ref(*(jnp.asarray(x) for x in (
+        dist, mrank, prop, mrank, r.ell_src, r.ell_w, rank)))]
+    t = [torch.as_tensor(x) for x in (dist, mrank, prop, alive)]
+    rank_t = torch.as_tensor(rank)
+    for got in (ell_sweep_plain(*t, es, ew, rank_t, tail=tail),
+                ell_sweep_bucketed_plain(*t, lay, rank_t)):
+        for x, y, before in zip(got, want, (dist, mrank)):
+            x = x.numpy()
+            assert np.array_equal(x[alive], y[alive])
+            assert np.array_equal(x[~alive], before[~alive])
 
 
 # ----------------------------------------------------------- 2. sweeps
 
-@pytest.mark.parametrize("route", ["dense", "windowed"])
+@pytest.mark.parametrize("route", ["one-window", "windowed"])
 def test_plant_on_a_tailed_graph_equals_both_references(route):
     n, s, d, w = kron_edges(10)
     g, r = from_edges(n, s, d, w), rg.from_edges(n, s, d, w)
     rank = DEGREE.rank(n, s, d)
     roots = CANONICAL.top_roots(rank, 8)
     a = device_arrays(g, rank, "cpu")
-    lay = (sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=256)
-           if route == "windowed" else None)
-    assert (lay is None) == (route == "dense")
+    lay = (sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=256,
+                        tail=a.tail) if route == "windowed" else
+           relax.ell_layout(a.ell_src, a.ell_w, batch=4, tail=a.tail))
+    assert (lay.num_windows == 1) == (route == "one-window")
     sink = DenseSink(n, 32, torch.device("cpu"))
     valid = torch.ones(4, dtype=torch.bool)
     for lo in (0, 4):
@@ -273,23 +329,47 @@ def test_repair_of_a_tail_arc_equals_a_rebuild():
             assert np.array_equal(np.asarray(x[key]), np.asarray(y[key]))
 
 
-def test_dense_kernel_refuses_a_tailed_adjacency():
+@pytest.mark.parametrize("path", ["plant", "gll", "hybrid", "dgll",
+                                  "plant-dist", "directed", "repair"])
+def test_every_build_path_passes_its_tail(path, monkeypatch):
+    """Every layout a build path asks for over the hub graph's adjacency
+    is built with its tail, and over an adjacency with no tail without
+    one. Pruned trees seldom need the arcs into the top-ranked hub, so
+    equal labels alone do not show that a path passed the tail."""
     g, _, rank = hub_graphs()
-    a = device_arrays(g, rank, "cpu")
-    B, n = 2, g.n
-    dist = torch.full((B, n), torch.inf)
-    mrank = torch.full((B, n), -1, dtype=torch.int32)
-    alive = torch.ones(B, dtype=torch.bool)
-    with pytest.raises(ValueError, match="hub tail"):
-        ell_relax(dist, mrank, dist, alive, a.ell_src, a.ell_w, a.rank)
-    # the tail goes with the pair: other weights are refused, a copy of
-    # the ELL carries none
-    with pytest.raises(ValueError, match="another ell_w"):
-        tail_of(a.ell_src, a.ell_w.clone())
-    assert tail_of(a.ell_src.clone(), a.ell_w) is None
-    # the CPU route folds it
-    got = ell_sweep(dist, mrank, dist, alive, a.ell_src, a.ell_w, a.rank)
-    assert got[0].shape == (B, n)
+    calls = []
+    real = relax.sweep_layout
+
+    def spy(ell_src, ell_w, *, bb, tail=None, **kw):
+        # the hub, vertex 0, fills its capped ELL row in a tailed graph
+        full = ell_w.shape[1] == ELL_CAP and bool(
+            torch.isfinite(ell_w[0]).all())
+        calls.append((full, None if tail is None else tail.dst.numel()))
+        return real(ell_src, ell_w, bb=bb, tail=tail, **kw)
+
+    monkeypatch.setattr(relax, "sweep_layout", spy)
+    if path == "directed":
+        n, s, d, w = hub_edges(seed=1)
+        dg = from_edges(n, s, d, w, directed=True)
+        build(dg, DEGREE.rank(n, s, d), BuildPlan(algo="directed", batch=32),
+              device="cpu")
+        want = dg.reverse().tail_arcs
+    elif path == "repair":
+        idx = build(g, rank, BuildPlan(algo="plant", batch=8), device="cpu")
+        calls.clear()
+        v = int(g.tail_src[g.tail_dst == 0][0])
+        idx.apply(MutationBatch([EdgeReweight(0, v, 1.0)]), graph=g)
+        want = g.tail_arcs
+    else:
+        kw = {"plant": dict(batch=16), "gll": dict(batch=16),
+              "hybrid": dict(batch=4, eta=4, psi_th=2.0),
+              "dgll": dict(batch=4, beta=4.0, eta=0),
+              "plant-dist": dict(batch=4)}[path]
+        build(g, rank, BuildPlan(algo=path, **kw), mesh=CPU, device="cpu")
+        want = g.tail_arcs
+    assert any(full for full, _ in calls)
+    for full, tail in calls:
+        assert tail == (want if full else None)
 
 
 def test_fingerprint_covers_the_tail():
@@ -313,15 +393,16 @@ def test_fingerprint_covers_the_tail():
 def test_recorder_counts_the_tail_and_the_lone_tiles():
     """A star of 4,999 spokes on 5,000 vertices in two windows of 2,560:
     the hub's in-edges are two segments past `TILE_EDGES` (2,559 and
-    2,440 edges), each a lone tile; the plain dense route counts the
-    tail's arcs and no tile."""
+    2,440 edges), each a lone tile; a fixpoint through the CPU's
+    one-window layout counts the tail's arcs and its one lone tile."""
     n = 5000
     spokes = np.arange(1, n, dtype=np.int32)
     g = from_edges(n, np.zeros(n - 1, np.int32), spokes,
                    np.ones(n - 1, np.float32))
     assert g.tail_arcs == n - 1 - ELL_CAP
     a = device_arrays(g, np.arange(n, dtype=np.int32), "cpu")
-    lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=4096)
+    lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=4096,
+                       tail=a.tail)
     assert lay.num_windows == 2 and lay.window == 2560
     assert 2559 > TILE_EDGES and 2440 > TILE_EDGES
     want = {"tail_arcs": n - 1 - ELL_CAP, "split_rows": 1,
@@ -331,24 +412,25 @@ def test_recorder_counts_the_tail_and_the_lone_tiles():
     tracing.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         # a windowed call's rows (its sweeps are the card's), then a
-        # plain dense fixpoint
+        # plain fixpoint through the one-window layout
         rows = tracing.sweep_rows(a.ell_src, a.ell_w, lay)
         rows.open()
         rows.close(torch.ones((4, n), dtype=torch.bool))
+        one = relax.ell_layout(a.ell_src, a.ell_w, batch=4, tail=a.tail)
         st = relax.batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank,
                                         torch.as_tensor([0, 1, 2, 3]),
-                                        max_sweeps=1)
+                                        max_sweeps=1, layout=one)
     rows = tracing.snapshot()["sweeps"]
     tracing.reset()
     windowed = [r for r in rows if r["call"] == 0]
-    dense = [r for r in rows if r["call"] == 1]
-    assert len(windowed) == 1 and len(dense) == st.sweeps == 1
+    plain = [r for r in rows if r["call"] == 1]
+    assert len(windowed) == 1 and len(plain) == st.sweeps == 1
     assert {k: windowed[0][k] for k in want} == want
-    assert windowed[0]["edges"] == dense[0]["edges"] == g.m
+    assert windowed[0]["edges"] == plain[0]["edges"] == g.m
     assert windowed[0]["active_edges"] == 4 * g.m
-    assert (dense[0]["tail_arcs"], dense[0]["split_rows"],
-            dense[0]["lone_tiles"], dense[0]["lone_tile_edges"],
-            dense[0]["longest_segment"]) == (n - 1 - ELL_CAP, 1, 0, 0, None)
+    assert one.num_windows == 1
+    assert {k: plain[0][k] for k in want} == one.counters == dict(
+        want, lone_tiles=1, longest_segment=n - 1)
     # one sweep: root 1 reaches the hub through the tail's first arc,
     # the hub every spoke
     assert st.dist[1, 0] == 1 and st.dist[0, n - 1] == 1
@@ -372,7 +454,8 @@ def test_lone_segments_lead_their_windows():
     keep = src != dst
     g = from_edges(n, src[keep], dst[keep], w[keep])
     a = device_arrays(g, np.arange(n, dtype=np.int32), "cpu")
-    lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=4096)
+    lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=4096,
+                       tail=a.tail)
     assert lay.num_windows == 2 and lay.counters["lone_tiles"] == 3
     s = lay.segments
     rows, length = s.seg_row.numpy(), s.seg_ptr.diff().numpy()
