@@ -126,7 +126,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    minplus kernel), equal to the ELL engine on the card (its largest
    degree, 359, passes the ELL cap, so the engine sweeps its capped
    ELL and hub tail through the windowed kernel, on the one-window
-   layout built with its tail);
+   layout built with its tail); then at B = 4, the main path's batch,
+   whose layout block-folds the segments past 128 edges: the first 4
+   roots' fixpoint equals the dense block's rows, and one sweep of a
+   mid-build state equals ``ell_sweep_bucketed_plain`` bit for bit;
 5. road scale: the chl-road configuration, grid_road(4096, 4096)
    (n = 16,777,216, ELL width 8), one PLaNT superstep of one cluster
    node — 8 unpruned trees in batches of 4, label cap 8 — through the
@@ -3532,6 +3535,7 @@ def phase_dense(dev, kernels) -> dict:
     import torch
     from repro_torch.engine import rank_order
     from repro_torch.graphs import device_arrays, degree_ranking, scale_free
+    from repro_torch.kernels.ell_relax.layout import BLOCK_TREES
     from repro_torch.kernels.minplus import (dense_weights, minplus,
                                              minplus_plain,
                                              plant_fixpoint_dense)
@@ -3560,11 +3564,17 @@ def phase_dense(dev, kernels) -> dict:
             "dense: (dist, mrank) != the ELL engine's")
     want = (st.mrank == a.rank[roots][:, None]) & torch.isfinite(st.dist)
     require(torch.equal(emit, want), "dense: emit != the ELL emit rule")
+    del st, lay
+    block = dense_block_fold(dev, a, roots, dist, mrank)
     log(f"dense block: W [{g.n}, {g.n}] f32 ({w.numel() * 4 / 1e9:.2f} GB)"
         f", {DENSE_ROOTS} roots to fixpoint in {launches['minplus']} "
         f"sweeps, wall {wall:.3f} s (W built on the card included); "
         f"(dist, mrank) == batched_sssp_maxrank over the ELL, emit == "
-        f"its rule ({int(emit.sum())} labels); launches {launches}")
+        f"its rule ({int(emit.sum())} labels); at B = {BLOCK_TREES}, "
+        f"{block['block_tiles']} block tiles of {block['block_tile_edges']}"
+        f" edges, the fixpoint == the dense block's rows and "
+        f"ell_relax_windowed == ell_sweep_bucketed_plain; launches "
+        f"{launches}")
 
     ops = (dist, mrank, w)
     kern = lambda: minplus(*ops)                        # noqa: E731
@@ -3598,6 +3608,40 @@ def phase_dense(dev, kernels) -> dict:
             "minplus": {"max_abs_err": err, "ms": ms, "device_ms": dms,
                         "host_us": hus, "plain_ms": plain_ms,
                         "bound_ms": bnd[0], "bound_by": bnd[1]}}
+
+
+def dense_block_fold(dev, a, roots, dist, mrank) -> dict:
+    """The dense-block graph at the main path's batch (`BLOCK_TREES`),
+    whose layout's cut its hubs' segments pass, so that the windowed
+    kernel folds them with its whole block: the first roots' fixpoint
+    through that layout equals the dense block's rows, and one sweep of
+    a mid-build state (two sweeps in, every tree live) equals the plain
+    sweep of the same segments bit for bit. Returns the layout's
+    counters."""
+    import torch
+    from repro_torch.kernels.ell_relax import (ell_relax_windowed,
+                                               ell_sweep_bucketed_plain)
+    from repro_torch.kernels.ell_relax.layout import BLOCK_TREES
+    from repro_torch.sssp import batched_sssp_maxrank, ell_layout
+    lay = ell_layout(a.ell_src, a.ell_w, batch=BLOCK_TREES, tail=a.tail)
+    require(lay.counters["block_tiles"] > 0,
+            f"dense: no block tile at B = {BLOCK_TREES}")
+    top = roots[:BLOCK_TREES]
+    st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, top, layout=lay)
+    require(torch.equal(st.dist, dist[:BLOCK_TREES])
+            and torch.equal(st.mrank, mrank[:BLOCK_TREES]),
+            f"dense: the windowed fixpoint at B = {BLOCK_TREES} != the "
+            "dense block's rows")
+    st = batched_sssp_maxrank(a.ell_src, a.ell_w, a.rank, top,
+                              max_sweeps=2, layout=lay)
+    alive = torch.ones(BLOCK_TREES, dtype=torch.bool, device=dev)
+    planes = (st.dist, st.mrank, st.dist, alive)
+    kd, km = ell_relax_windowed(*planes, lay, a.rank)
+    pd, pm = ell_sweep_bucketed_plain(*planes, lay, a.rank)
+    torch.cuda.synchronize()
+    require(torch.equal(kd, pd) and torch.equal(km, pm),
+            f"dense: ell_relax_windowed != plain at B = {BLOCK_TREES}")
+    return lay.counters
 
 
 def road_graph():

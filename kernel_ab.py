@@ -32,12 +32,19 @@ measures, with ``chip_smoke.py``'s timers:
   sources anywhere: each hub's segment in each of the six windows is a
   tile alone, the largest ~27K edges), every tree alive and ``prop``
   finite at a set share of the sources (``windowed-urand-<per mille>``,
-  ``windowed-grid-<per mille>``, ``windowed-kron-<per mille>``): the
-  device time all of a call's device work covers, ms per call by CUDA
-  events, held equal to the dense sweep ``ell_relax`` on the same
-  operands (kron's, with its hub tail passed to ``sweep_layout`` as
-  ``tail=``, to the plain sweep of ELL + tail ``ell_sweep_plain(...,
-  tail=)``: the dense kernel reads the ELL alone);
+  ``windowed-grid-<per mille>``, ``windowed-kron-<per mille>``), and a
+  graph of ``chl_kron22``'s segment lengths (``windowed-kronmid-<per
+  mille>``): n = 4,194,304, every in-edge in the hub tail, and over the
+  windows of the card's plan at B = 4 the segments kron22 has there
+  (`KRONMID`: ≤ 8, 9-32, 33-128, 129-256, 257-512 and 513-2,048 edges
+  and past the 2,048-edge buffer, each class with kron22's count and
+  mean length), a row's segments in every window of one class, as a
+  hub's are: the device time all of a call's device work covers, ms
+  per call by CUDA events, the layout's tiles and gather gain, held
+  equal to the dense sweep ``ell_relax`` on the same operands (kron's,
+  with its hub tail passed to ``sweep_layout`` as ``tail=``, to the
+  plain sweep of ELL + tail ``ell_sweep_plain(..., tail=)``: the dense
+  kernel reads the ELL alone);
 - the serving entry point ``query_table(table, u, v)`` (its public API
   in every checkout) on 65,536 random pairs over four tables: the
   exactness build's (L = 288), a synthetic road-like table (n =
@@ -70,10 +77,18 @@ HERE = Path(__file__).resolve().parent
 #: the windowed sweep's states: graph and finite-source share, per mille
 WINDOWED = {f"windowed-{g}-{pm}": (g, pm) for g, pms in (
     ("urand", (1, 10, 100, 300, 500, 1000)), ("grid", (10, 1000)),
-    ("kron", (10, 330, 1000))) for pm in pms}
+    ("kron", (10, 330, 1000)), ("kronmid", (10, 330, 1000))) for pm in pms}
 #: the kron states' hub rows: in-edges of kron22's largest hub, then of
 #: the next five
 KRON_HUBS = (163025,) + (67600,) * 5
+#: the kronmid state's segments: kron22's at B = 4 (PERF.md), as
+#: (count, shortest, longest, mean edges) a length class, spread evenly
+#: over the windows; a class's lengths are drawn as shortest +
+#: (longest - shortest + 1) * u^k, u uniform, k set by the mean
+KRONMID = ((6_674_737, 1, 8, 2.480), (1_176_759, 9, 32, 15.81),
+           (447_504, 33, 128, 52.76), (157_765, 129, 256, 164.3),
+           (27_729, 257, 512, 490.5), (25_401, 513, 2048, 884.0),
+           (1_524, 2049, 27_334, 4951.0))
 STATES = ("exactness", "road-mid", "random-mid", "dense", "query-exactness",
           "query-road", "query-random", "query-synthetic-256") + tuple(
               WINDOWED)
@@ -99,12 +114,50 @@ def relax_state(dev, g, rank, batch, sweeps):
     return (st.dist, st.mrank, st.dist, alive, a.ell_src, a.ell_w, a.rank)
 
 
+def kronmid_graph(dev, gen):
+    """The kronmid state's adjacency (`KRONMID`): an ELL of one
+    column, all padding, and every in-edge in the hub tail."""
+    import torch
+    from repro_torch.kernels.ell_relax.layout import window_plan
+    from repro_torch.kernels.ell_relax.tail import EllTail
+    n = 4194304
+    W, nw, _ = window_plan(n, bb=4, device=dev)
+    rows = torch.randperm(n, device=dev, generator=gen)
+    seg_row, seg_len, at = [], [], 0
+    for count, lo, hi, mean in KRONMID:
+        count //= nw                                 # rows of the class
+        k = (hi - lo + 1) / (mean - lo + 0.5) - 1
+        u = torch.rand((count, nw), device=dev, generator=gen,
+                       dtype=torch.float64)
+        seg_len.append((lo + ((hi - lo + 1) * u ** k).long()).clamp(max=hi))
+        seg_row.append(rows[at:at + count, None].expand(count, nw))
+        at += count
+    seg_row = torch.cat(seg_row).flatten()
+    seg_len = torch.cat(seg_len).flatten()
+    seg_win = torch.arange(nw, device=dev).repeat(seg_row.numel() // nw)
+    seg = torch.repeat_interleave(torch.arange(seg_row.numel(), device=dev),
+                                  seg_len)
+    del seg_len
+    width = torch.clamp(n - seg_win * W, max=W)
+    src = seg_win[seg] * W + (torch.rand(seg.shape, device=dev,
+                                         generator=gen) * width[seg]).long()
+    dst, order = torch.sort(seg_row[seg], stable=True)
+    del seg
+    w = torch.randint(1, 2048, dst.shape, device=dev, generator=gen).float()
+    tail = EllTail(dst.to(torch.int32), src[order].to(torch.int32), w)
+    es = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+    ew = torch.full((n, 1), torch.inf, device=dev)
+    return es, ew, tail
+
+
 def windowed_graph(dev, graph):
     """The windowed states' adjacency, made on the card from a seed:
-    (ell_src, ell_w, tail), the tail None but for kron."""
+    (ell_src, ell_w, tail), the tail None but for kron and kronmid."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
+    if graph == "kronmid":
+        return kronmid_graph(dev, gen)
     if graph in ("urand", "kron"):
         n, deg, mean = (4194304, 72, 34.0) if graph == "urand" else (
             4194304, 32, 12.0)
@@ -234,7 +287,7 @@ def measure_root(root: Path, only) -> dict:
                                       for r in idx.report.supersteps)
             out[what]["digest"] += "/" + digest(*idx.table)
             exact_table = idx.table
-    for graph in ("urand", "grid", "kron"):
+    for graph in ("urand", "grid", "kron", "kronmid"):
         wanted = [w for w, (g, _) in WINDOWED.items()
                   if g == graph and w in only]
         if not wanted:
@@ -260,6 +313,8 @@ def measure_root(root: Path, only) -> dict:
                          "device_ms": (cs.covered(evs) / 1e3 / 10
                                        if evs else None),
                          "host_us": cs.host_us(call, 5, rounds=5),
+                         "tiles": lay.segments.tile_segs.numel() - 1,
+                         "gain": lay.gather_gain,
                          "digest": digest(kd, km)}
             del dist, mrank, prop, rank, kd, km, dd, dm
         del es, ew, tail, lay
@@ -370,6 +425,8 @@ def main() -> int:
             if what == "exactness":
                 extra += (f"; the build {m['build_s']:.3f} s, "
                           f"{m['sweeps']} sweeps")
+            if what in WINDOWED:
+                extra += f"; {m['tiles']} tiles, gather gain {m['gain']:.4f}"
             print(f"{root} {what}: {m['ms']:.4f} ms per call (events), "
                   f"device {cs.fmt_ms(m['device_ms'])}{extra}; outputs "
                   f"{m['digest']}", flush=True)

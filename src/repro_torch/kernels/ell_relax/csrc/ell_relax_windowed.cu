@@ -67,12 +67,17 @@
 //   loads still fill a sector, and no lane idles on a retired tree. A
 //   pair gathers the mask bytes of four edges, then prop only at the set
 //   bits. The retired trees' rows then copy through.
-// - A segment longer than the buffers is a tile alone (a hub's row in a
-//   window), and its block folds it whole (`relax_lone`, a function of
-//   its own): consecutive threads read consecutive edges from device
-//   memory, once each, and fold each edge for LONE_TREES trees at a time,
-//   so that every edge load feeds that many independent prop gathers
-//   (where the tree group is gated, after its mask byte). The warps then
+// - A segment longer than the layout's cut (block_cut, layout.py: 128
+//   edges for batches of up to BLOCK_TREES trees, else the buffer) is a
+//   tile alone (a hub's row in a window), and its block
+//   folds it whole (`relax_block`, a function of its own): inside a
+//   staged tile one thread a tree would fold it, up to hundreds of
+//   dependent steps while the tile's other pairs are long done, and the
+//   next window's resuming rows would wait on that block.
+//   Consecutive threads read consecutive edges from device memory, once
+//   each, and fold each edge for BLOCK_TREES trees at a time, so that
+//   every edge load feeds that many independent prop gathers (where the
+//   tree group is gated, after its mask byte). The warps then
 //   combine their threads' (best, bm) by shuffles and the block its
 //   warps' through shared memory: min, then max over the ranks that
 //   attain it, exact and order-free, so that the result is still
@@ -356,23 +361,24 @@ __device__ __noinline__ void relax_gated(const Planes p, const Mask m,
   }
 }
 
-// A lone tile's block folds its segment LONE_TREES trees at a time, and
-// keeps each tree's block-wide fold in shared memory until the trees'
-// rows are finished, for LONE_CHUNK trees at once. Both live in the
-// staging buffer sh_edge, which a lone tile does not use: first the
+// A block tile's block folds its segment BLOCK_TREES trees at a time
+// (layout.py's BLOCK_TREES), and keeps each tree's block-wide fold in
+// shared memory until the trees' rows are finished, for BLOCK_CHUNK
+// trees at once. Both live in the
+// staging buffer sh_edge, which a block tile does not use: first the
 // warps' folds of two consecutive groups, then the chunk's.
-constexpr int LONE_TREES = 4;
+constexpr int BLOCK_TREES = 4;
 constexpr int WARPS = THREADS / 32;
-constexpr int LONE_PARTS = 2 * WARPS * LONE_TREES;
-constexpr int LONE_CHUNK = 1024;
-static_assert(LONE_PARTS + LONE_CHUNK <= EDGE_BUF,
-              "the lone fold's scratch must fit the edge buffer");
+constexpr int BLOCK_PARTS = 2 * WARPS * BLOCK_TREES;
+constexpr int BLOCK_CHUNK = 1024;
+static_assert(BLOCK_PARTS + BLOCK_CHUNK <= EDGE_BUF,
+              "the block fold's scratch must fit the edge buffer");
 
-// A lone segment, destination v and edges [lo, hi) of src / w, folded by
+// A long segment, destination v and edges [lo, hi) of src / w, folded by
 // the whole block. Thread t folds edges lo + t, lo + t + THREADS, ...
 // (each edge read once, the warp's loads coalesced, the next edge's
 // loads issued before this one's gathers) for the live trees of a group
-// of LONE_TREES; where the window gates the group's mask group, prop is
+// of BLOCK_TREES; where the window gates the group's mask group, prop is
 // gathered only at the set bits of the source's mask byte. The warps
 // combine their lanes' folds by shuffles, the block its warps' through
 // shared memory (`fold_min_max`: exact, so the result does not depend on
@@ -381,24 +387,24 @@ static_assert(LONE_PARTS + LONE_CHUNK <= EDGE_BUF,
 // the previous window), and stores the row (`store_row`); retired trees
 // copy through at the row's last segment.
 template <bool MASKED>
-__device__ __forceinline__ void relax_lone_segment(
+__device__ __forceinline__ void relax_block_segment(
     const Planes& p, const Mask& m, const unsigned gate, const int v,
     const unsigned flags, const int* __restrict__ src,
     const float* __restrict__ w, const int lo, const int hi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool last = flags & 2u;
-  int2* const part = sh_edge;                     // [2][WARPS][LONE_TREES]
-  int2* const res = sh_edge + LONE_PARTS;         // [LONE_CHUNK]
+  int2* const part = sh_edge;                    // [2][WARPS][BLOCK_TREES]
+  int2* const res = sh_edge + BLOCK_PARTS;       // [BLOCK_CHUNK]
   int k = 0;                                      // groups folded
-  for (long long c0 = 0; c0 < p.B; c0 += LONE_CHUNK) {
-    const long long c1 = min(p.B, c0 + LONE_CHUNK);
-    for (long long b0 = c0; b0 < c1; b0 += LONE_TREES, ++k) {
+  for (long long c0 = 0; c0 < p.B; c0 += BLOCK_CHUNK) {
+    const long long c1 = min(p.B, c0 + BLOCK_CHUNK);
+    for (long long b0 = c0; b0 < c1; b0 += BLOCK_TREES, ++k) {
       unsigned live = 0;
 #pragma unroll
-      for (int j = 0; j < LONE_TREES; ++j)
+      for (int j = 0; j < BLOCK_TREES; ++j)
         if (b0 + j < c1 && __ldg(p.alive + b0 + j)) live |= 1u << j;
       // the group's byte of the mask, where its mask group is gated (a
-      // group of LONE_TREES lies in one mask group)
+      // group of BLOCK_TREES lies in one mask group)
       const unsigned char* mg = nullptr;
       if constexpr (MASKED) {
         if (b0 < GATE_TREES && ((gate >> (b0 / MASK_GROUP)) & 1u))
@@ -407,10 +413,10 @@ __device__ __forceinline__ void relax_lone_segment(
       const int shift = (int)(b0 % MASK_GROUP);
       const float* pb = p.prop + b0 * p.n;
       const int* mb = p.mrank + b0 * p.n;
-      float best[LONE_TREES];
-      int bm[LONE_TREES];
+      float best[BLOCK_TREES];
+      int bm[BLOCK_TREES];
 #pragma unroll
-      for (int j = 0; j < LONE_TREES; ++j) {
+      for (int j = 0; j < BLOCK_TREES; ++j) {
         best[j] = INFINITY;
         bm[j] = -1;
       }
@@ -426,40 +432,40 @@ __device__ __forceinline__ void relax_lone_segment(
           if constexpr (MASKED) {
             if (mg) hit &= __ldg(mg + s) >> shift;
           }
-          float c[LONE_TREES];
+          float c[BLOCK_TREES];
 #pragma unroll
-          for (int j = 0; j < LONE_TREES; ++j)
+          for (int j = 0; j < BLOCK_TREES; ++j)
             c[j] = (hit >> j) & 1u ? __ldg(pb + j * p.n + s) + we
                                    : INFINITY;
           // mrank only where the candidate attains the tree's minimum
 #pragma unroll
-          for (int j = 0; j < LONE_TREES; ++j)
+          for (int j = 0; j < BLOCK_TREES; ++j)
             if (c[j] <= best[j] && isfinite(c[j]))
               fold_min_max(best[j], bm[j], c[j], __ldg(mb + j * p.n + s));
           s = sn;
           we = wn;
         }
       }
-      int2* const pk = part + (k & 1) * WARPS * LONE_TREES;
+      int2* const pk = part + (k & 1) * WARPS * BLOCK_TREES;
 #pragma unroll
-      for (int j = 0; j < LONE_TREES; ++j) {
+      for (int j = 0; j < BLOCK_TREES; ++j) {
         for (int off = 16; off; off >>= 1) {
           const float ob = __shfl_xor_sync(0xffffffffu, best[j], off);
           const int om = __shfl_xor_sync(0xffffffffu, bm[j], off);
           fold_min_max(best[j], bm[j], ob, om);
         }
         if (lane == 0)
-          pk[warp * LONE_TREES + j] = make_int2(__float_as_int(best[j]),
+          pk[warp * BLOCK_TREES + j] = make_int2(__float_as_int(best[j]),
                                                 bm[j]);
       }
       // (the other half of part, which the next group writes, was read
       // before every thread passed this group's barrier)
       __syncthreads();
-      if (tid < LONE_TREES && b0 + tid < c1) {
+      if (tid < BLOCK_TREES && b0 + tid < c1) {
         float bb = INFINITY;
         int bbm = -1;
         for (int q = 0; q < WARPS; ++q) {
-          const int2 x = pk[q * LONE_TREES + tid];
+          const int2 x = pk[q * BLOCK_TREES + tid];
           fold_min_max(bb, bbm, __int_as_float(x.x), x.y);
         }
         res[b0 - c0 + tid] = make_int2(__float_as_int(bb), bbm);
@@ -493,26 +499,26 @@ __device__ __forceinline__ void relax_lone_segment(
   }
 }
 
-// A lone tile's segments (the layout makes it one), each folded by the
+// A block tile's segments (the layout makes it one), each folded by the
 // whole block. A function of its own, and the tile's last call, so that
 // its registers do not crowd the tiled fold's: a call with the tile's
 // values still live after it spills the tiled fold's registers and slows
 // it (measured on the card).
 template <bool MASKED>
-__device__ __noinline__ void relax_lone(const Planes p, const Mask m,
-                                        const unsigned gate,
-                                        const int* __restrict__ seg_row,
-                                        const unsigned char* __restrict__
-                                            seg_flags,
-                                        const int* __restrict__ seg_end,
-                                        const int ns,
-                                        const int* __restrict__ src,
-                                        const float* __restrict__ w) {
+__device__ __noinline__ void relax_block(const Planes p, const Mask m,
+                                         const unsigned gate,
+                                         const int* __restrict__ seg_row,
+                                         const unsigned char* __restrict__
+                                             seg_flags,
+                                         const int* __restrict__ seg_end,
+                                         const int ns,
+                                         const int* __restrict__ src,
+                                         const float* __restrict__ w) {
   for (int i = 0; i < ns; ++i)
-    relax_lone_segment<MASKED>(p, m, gate, __ldg(seg_row + i),
-                               __ldg(seg_flags + i), src, w,
-                               i ? __ldg(seg_end + i - 1) : 0,
-                               __ldg(seg_end + i));
+    relax_block_segment<MASKED>(p, m, gate, __ldg(seg_row + i),
+                                __ldg(seg_flags + i), src, w,
+                                i ? __ldg(seg_end + i - 1) : 0,
+                                __ldg(seg_end + i));
 }
 
 template <bool MASKED>
@@ -524,7 +530,8 @@ __device__ __forceinline__ void relax_tiles(
     const long long* __restrict__ tile_edges,
     const int* __restrict__ edge_src, const float* __restrict__ edge_w,
     long long E, long long tile_lo, long long num_tiles,
-    const int* __restrict__ bare_rows, long long num_bare) {
+    const int* __restrict__ bare_rows, long long num_bare,
+    long long block_cut) {
   const int tid = threadIdx.x;
   allow_next_window();
 
@@ -554,11 +561,12 @@ __device__ __forceinline__ void relax_tiles(
   int s = tid % ns;
   long long b = tid / ns;
 
-  if (ns > TILE_SEGS || ne > TILE_EDGES) {
-    // a segment longer than the buffers (the layout leaves it alone in
-    // its tile): the whole block folds it from device memory
-    relax_lone<MASKED>(p, m, gate, seg_row + s0, seg_flags + s0,
-                       seg_end + s0, ns, edge_src + e0, edge_w + e0);
+  if ((ns == 1 && ne > block_cut) || ns > TILE_SEGS || ne > TILE_EDGES) {
+    // one segment longer than the layout's cut (the layout leaves it
+    // alone in its tile), or a tile the buffers could not hold: the whole
+    // block folds it from device memory
+    relax_block<MASKED>(p, m, gate, seg_row + s0, seg_flags + s0,
+                        seg_end + s0, ns, edge_src + e0, edge_w + e0);
     return;
   }
 
@@ -623,10 +631,10 @@ __global__ void __launch_bounds__(THREADS, MASKED ? 6 : 8) relax_tiles_kernel(
     const int* __restrict__ edge_src, const float* __restrict__ edge_w,
     long long E, long long tile_lo, long long num_tiles,
     const int* __restrict__ bare_rows, long long num_bare, Mask m,
-    long long wd) {
+    long long wd, long long block_cut) {
   relax_tiles<MASKED>(p, m, wd, seg_row, seg_flags, seg_end, tile_segs,
                       tile_edges, edge_src, edge_w, E, tile_lo, num_tiles,
-                      bare_rows, num_bare);
+                      bare_rows, num_bare, block_cut);
   wait_for_previous_window();
 }
 
@@ -725,8 +733,9 @@ __global__ void __launch_bounds__(THREADS) pack_mask_kernel(
 // [G, n] bytes (G = ceil(B / MASK_GROUP)) and stats 2 * num_windows * G
 // + num_windows i32 words, padded to even, then 2 more (`Stats`), both
 // written here; or both null, and the sweep packs no mask and gates no
-// window. window is the layout's window width, a multiple of 32, and
-// gain the layout's gather gain (`choose_kernel`).
+// window. window is the layout's window width, a multiple of 32,
+// block_cut its cut (a tile of one longer segment is folded by its whole
+// block) and gain its gather gain (`choose_kernel`).
 extern "C" int ell_relax_windowed_launch(
     const void* dist, const void* mrank, const void* prop,
     const void* alive, const void* seg_row, const void* seg_flags,
@@ -735,7 +744,7 @@ extern "C" int ell_relax_windowed_launch(
     const void* bare_rows, void* out_d, void* out_m, void* mask,
     void* stats, const long long* win_tiles, long long num_windows,
     long long num_bare, long long E, long long B, long long n,
-    long long window, double gain, void* stream) {
+    long long window, long long block_cut, double gain, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Planes p{(const float*)dist, (const int*)mrank, (const float*)prop,
                  (const unsigned char*)alive, (const int*)rank,
@@ -786,7 +795,7 @@ extern "C" int ell_relax_windowed_launch(
         (const unsigned char*)seg_flags, (const int*)seg_end,
         (const long long*)tile_segs, (const long long*)tile_edges,
         (const int*)edge_src, (const float*)edge_w, E, lo, tiles,
-        (const int*)bare_rows, bare, m, wd);
+        (const int*)bare_rows, bare, m, wd, block_cut);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     launched = true;

@@ -23,7 +23,8 @@ the finite in-edges, the ELL's and those of the hub tail its caller
 passes, sorted by (source window, destination), with no padding, cut
 into *tiles* of consecutive segments of one window that one block of
 the CUDA kernel stages in shared memory (at most `TILE_SEGS` segments
-and `TILE_EDGES` edges, or one longer segment alone). The windowed
+and `TILE_EDGES` edges), or one segment longer than the layout's cut
+(`block_cut`) alone, which the whole block folds. The windowed
 kernel and its plain version (``ref.ell_sweep_bucketed_plain``) both
 read these segments. For every (row, window) a segment lists the edges
 of the reference package's padded bucket
@@ -39,7 +40,7 @@ graph: `sweep_layout` caches by tensor identity. A tailed adjacency
 gets a layout on every device, of one window where the L2 (or the
 CPU's lack of one) calls for none: its sweeps always run through it,
 since the dense sweeps read the ELL alone. `BucketedEll.counters` holds
-the layout's counts of the tail and of the tiles too long to stage
+the layout's counts of the tail and of the tiles of one long segment
 (`repro_torch.tracing` hands them to each sweep row).
 
 `BucketedEll.gather_gain` measures how much the windowed kernel's prop
@@ -70,6 +71,14 @@ PLANE_BYTES = 8
 #: the same two constants
 TILE_SEGS = 256
 TILE_EDGES = 2048
+#: the cut of a layout for up to `BLOCK_TREES` trees (`block_cut`): a
+#: longer segment is a tile alone, which the kernel's whole block folds
+#: (``relax_block`` in the ``.cu``). Folded one thread a tree inside a
+#: staged tile, such a segment keeps its block waiting on one thread,
+#: and the next window's resuming rows on that block
+BLOCK_EDGES = 128
+#: the trees the block fold takes at a time (the ``.cu``'s BLOCK_TREES)
+BLOCK_TREES = 4
 
 _I32_MAX = 2 ** 31 - 1
 
@@ -146,12 +155,14 @@ class WindowSegments(NamedTuple):
 
     A *segment* is the run of one destination's edges inside one
     window. Window ``wd`` owns segments ``win_segs[wd]`` to
-    ``win_segs[wd + 1]``; in each, the segments longer than
-    `TILE_EDGES` come first, longest first, then the rest by ascending
-    destination. A *tile* is a run of consecutive segments of one
-    window, cut greedily: it takes segments while it holds at most
-    `TILE_SEGS` of them and `TILE_EDGES` edges; a segment longer than
-    that is a tile alone (a *lone tile*).
+    ``win_segs[wd + 1]``; in each, the segments longer than the
+    layout's cut (`block_cut`) come first, longest first, then the
+    rest by ascending destination. A segment longer than the cut is a
+    tile alone (a *block tile*; a *lone tile* where it passes
+    `TILE_EDGES`, the staging buffer). The other segments are cut into
+    tiles greedily: a tile of consecutive segments of one window takes
+    segments while it holds at most `TILE_SEGS` of them and
+    `TILE_EDGES` edges, and ends before a block tile.
     Tile ``t`` owns segments ``tile_segs[t]`` to ``tile_segs[t + 1]``
     and edges ``tile_edges[t]`` to ``tile_edges[t + 1]``; window ``wd``
     owns tiles ``win_tiles[wd]`` to ``win_tiles[wd + 1]``.
@@ -178,17 +189,24 @@ class BucketedEll:
     its plain version read; ``gather_gain`` (module docstring) is built
     from it on first access.
 
+    ``block_cut``: the cut (`block_cut`); the kernel folds a tile of
+    one longer segment with its whole block.
+
     ``counters`` (`layout_counters`): ``tail_arcs`` and ``split_rows``
-    (the hub tail's arcs and its distinct destinations), ``lone_tiles``
-    and ``lone_tile_edges`` (the tiles of one segment longer than
-    `TILE_EDGES`, which a block folds from device memory, and their
-    edges) and ``longest_segment`` (edges).
+    (the hub tail's arcs and its distinct destinations), ``block_tiles``
+    and ``block_tile_edges`` (the tiles of one segment longer than the
+    cut, which the kernel's whole block folds, and their edges),
+    ``lone_tiles`` and ``lone_tile_edges`` (those of them longer than
+    `TILE_EDGES`, which the block reads from device memory rather than
+    staged) and ``longest_segment`` (edges).
     """
 
     def __init__(self, segments: WindowSegments, *, n: int, deg: int,
-                 window: int, num_windows: int, n_pad: int, counters: dict):
+                 window: int, num_windows: int, n_pad: int, counters: dict,
+                 block_cut: int):
         self.segments = segments
         self.counters = counters
+        self.block_cut = block_cut
         self.n = n
         self.deg = deg
         self.window = window
@@ -212,15 +230,29 @@ class BucketedEll:
                 f"window={self.window}, num_windows={self.num_windows})")
 
 
-def _segments(rows, srcs, ws, wins, n: int, nw: int) -> WindowSegments:
+def block_cut(bb: int) -> int:
+    """The cut of a layout for sweeps of ``bb`` trees: a segment longer
+    than this is a tile alone, folded by the kernel's whole block.
+
+    `BLOCK_EDGES` up to `BLOCK_TREES` trees, the batch at which it was
+    chosen on a real heavy-tailed graph (PERF.md); past it the staging
+    buffer (`TILE_EDGES`), so that only the segments no tile can hold
+    are block-folded, since the block fold walks the batch a group of
+    `BLOCK_TREES` trees at a time."""
+    return BLOCK_EDGES if bb <= BLOCK_TREES else TILE_EDGES
+
+
+def _segments(rows, srcs, ws, wins, n: int, nw: int,
+              cut: int) -> WindowSegments:
     """Sort the finite edges by (window, destination) into segments;
     a stable sort keeps each segment's edges in ELL column order. Then
-    each window's lone segments (`_lone_first`) move to its front."""
+    each window's segments longer than ``cut`` (`_long_first`) move to
+    its front."""
     dev = rows.device
     sorted_keys, order = torch.sort(wins * n + rows, stable=True)
     keys, counts = torch.unique_consecutive(sorted_keys,
                                             return_counts=True)
-    keys, counts, order = _lone_first(keys, counts, order, n)
+    keys, counts, order = _long_first(keys, counts, order, n, cut)
     seg_row = keys % n
     seg_win = keys // n
     lo = torch.full((n,), nw, dtype=torch.int64, device=dev)
@@ -234,7 +266,7 @@ def _segments(rows, srcs, ws, wins, n: int, nw: int) -> WindowSegments:
     win_segs = torch.searchsorted(
         seg_win, torch.arange(nw + 1, device=dev)).tolist()
     seg_end, tile_segs, tile_edges, win_tiles = _tiles(ptr, seg_win,
-                                                       win_segs)
+                                                       win_segs, cut)
     return WindowSegments(
         seg_row=seg_row.to(torch.int32), seg_ptr=ptr, seg_flags=flags,
         edge_src=srcs[order].to(torch.int32), edge_w=ws[order],
@@ -243,22 +275,23 @@ def _segments(rows, srcs, ws, wins, n: int, nw: int) -> WindowSegments:
         tile_edges=tile_edges, win_tiles=win_tiles)
 
 
-def _lone_first(keys, counts, order, n: int):
+def _long_first(keys, counts, order, n: int, cut: int):
     """Segments (``keys`` = window * n + destination, their edge
     ``counts``, and ``order``, the edges segment by segment) with each
-    window's segments longer than `TILE_EDGES` first, longest first.
+    window's segments longer than ``cut`` first, longest first.
 
-    A lone tile is folded by one block from device memory, the most
-    work of any block of its window's pass: at the front, its block
-    starts with the pass, wherever the vertex numbering puts its row. A
-    layout without lone segments keeps its order."""
-    lone = counts > TILE_EDGES
-    if not bool(lone.any()):
+    A block tile is the most work of any block of its window's pass:
+    at the front, its block starts with the pass, wherever the vertex
+    numbering puts its row. A layout without such segments keeps its
+    order."""
+    past = counts > cut
+    if not bool(past.any()):
         return keys, counts, order
     top = int(counts.max()) + 1
-    # within a window: lone segments by descending length, then the
-    # rest, whose equal keys the stable sort keeps in destination order
-    rank = torch.where(lone, top - 1 - counts, top)
+    # within a window: segments past the cut by descending length, then
+    # the rest, whose equal keys the stable sort keeps in destination
+    # order
+    rank = torch.where(past, top - 1 - counts, top)
     _, perm = torch.sort(keys // n * (top + 1) + rank, stable=True)
     starts = (torch.cumsum(counts, 0) - counts)[perm]
     counts = counts[perm]
@@ -268,22 +301,29 @@ def _lone_first(keys, counts, order, n: int):
     return keys[perm], counts, order[edge]
 
 
-def _tiles(ptr: torch.Tensor, seg_win: torch.Tensor, win_segs: List[int]):
+def _tiles(ptr: torch.Tensor, seg_win: torch.Tensor, win_segs: List[int],
+           cut: int):
     """Cut the segments into tiles: (seg_end, tile_segs, tile_edges,
     win_tiles).
 
     From segment i a tile reaches ``nxt[i]``: as far as `TILE_SEGS`,
-    `TILE_EDGES` and the window's end allow, and at least one segment.
-    The greedy tiles are the chain 0, nxt[0], nxt[nxt[0]], ..., walked
-    on the host (one step per tile). Raises if a segment's end, counted
-    from its tile's first edge, would not fit the kernel's i32.
+    `TILE_EDGES`, the window's end and the next segment longer than
+    ``cut`` allow, and at least one segment, so that such a segment is
+    a tile alone. The greedy tiles are the chain 0, nxt[0],
+    nxt[nxt[0]], ..., walked on the host (one step per tile). Raises if
+    a segment's end, counted from its tile's first edge, would not fit
+    the kernel's i32.
     """
     dev = ptr.device
     S = ptr.numel() - 1
     i = torch.arange(S, device=dev)
     fit = torch.searchsorted(ptr, ptr[:-1] + TILE_EDGES, right=True) - 1
     win_end = torch.tensor(win_segs, device=dev)[seg_win + 1]
-    nxt = torch.minimum(torch.minimum(i + TILE_SEGS, fit), win_end)
+    # the first segment at or after i longer than the cut (S: none)
+    long_at = torch.where(ptr.diff() > cut, i, S)
+    next_long = long_at.flip(0).cummin(0).values.flip(0)
+    nxt = torch.minimum(torch.minimum(i + TILE_SEGS, fit),
+                        torch.minimum(win_end, next_long))
     nxt = torch.maximum(nxt, i + 1).cpu().numpy()
     starts, t = [], 0
     while t < S:
@@ -322,25 +362,30 @@ def _gather_gain(seg: WindowSegments, n: int) -> float:
     return (E / S) * (distinct / tile.numel())
 
 
-def layout_counters(seg: WindowSegments,
-                    tail: Optional[EllTail] = None) -> dict:
-    """`BucketedEll.counters` of these segments, built with ``tail``."""
+def layout_counters(seg: WindowSegments, tail: Optional[EllTail],
+                    cut: int) -> dict:
+    """`BucketedEll.counters` of these segments, built with ``tail``
+    and the cut ``cut``."""
     ne = seg.tile_edges.diff()
+    block = (seg.tile_segs.diff() == 1) & (ne > cut)
     lone = ne > TILE_EDGES
     lengths = seg.seg_ptr.diff()
     return {"tail_arcs": 0 if tail is None else int(tail.dst.numel()),
             "split_rows": 0 if tail is None else int(
                 torch.unique_consecutive(tail.dst).numel()),
+            "block_tiles": int(block.sum()),
+            "block_tile_edges": int(ne[block].sum()),
             "lone_tiles": int(lone.sum()),
             "lone_tile_edges": int(ne[lone].sum()),
             "longest_segment": int(lengths.max()) if lengths.numel() else 0}
 
 
 def build_bucketed_ell(ell_src: torch.Tensor, ell_w: torch.Tensor,
-                       plan: WindowPlan, *,
+                       plan: WindowPlan, *, bb: int,
                        tail: Optional[EllTail] = None) -> BucketedEll:
     """Bucket a pull ELL and its hub ``tail`` (None: the adjacency has
-    none) by source window, on the adjacency's device. ``+inf``-weight
+    none) by source window, on the adjacency's device, for sweeps of
+    ``bb`` trees (which set the cut, `block_cut`). ``+inf``-weight
     padding edges are dropped."""
     src = ell_src.to(torch.int64)
     w = ell_w.to(torch.float32)
@@ -355,9 +400,11 @@ def build_bucketed_ell(ell_src: torch.Tensor, ell_w: torch.Tensor,
         rows = torch.cat([rows, tail.dst.to(torch.int64)])
         srcs = torch.cat([srcs, tail.src.to(torch.int64)])
         ws = torch.cat([ws, tail.w.to(torch.float32)])
-    seg = _segments(rows, srcs, ws, srcs // W, n, nw)
+    cut = block_cut(bb)
+    seg = _segments(rows, srcs, ws, srcs // W, n, nw, cut)
     return BucketedEll(seg, n=n, deg=deg, window=W, num_windows=nw,
-                       n_pad=n_pad, counters=layout_counters(seg, tail))
+                       n_pad=n_pad, counters=layout_counters(seg, tail, cut),
+                       block_cut=cut)
 
 
 _CACHE_MAX = 4
@@ -386,8 +433,9 @@ def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
     one window covers the adjacency (the dense sweep) or no L2 plans
     windows.
 
-    Cached by adjacency and tail identity (id-keyed, weakref-validated,
-    small LRU): drivers and policies call it once per graph.
+    Cached by adjacency and tail identity, plan and cut (id-keyed,
+    weakref-validated, small LRU): drivers and policies call it once per
+    graph.
     """
     n = int(ell_src.shape[0])
     plan = (layout_plan(n, ell_src.device, bb=bb) if max_window is None
@@ -397,7 +445,7 @@ def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
     if plan is None:                               # one window over all n
         plan = window_plan(n, bb=bb, bn=bn, max_window=n + bn)
     anchors = (ell_src, ell_w, None if tail is None else tail.dst)
-    key = tuple(map(id, anchors)) + (plan, bn)
+    key = tuple(map(id, anchors)) + (plan, bn, block_cut(bb))
     hit = _cache.get(key)
     if hit is not None:
         refs, layout = hit
@@ -405,7 +453,7 @@ def sweep_layout(ell_src: torch.Tensor, ell_w: torch.Tensor, *, bb: int,
             _cache.move_to_end(key)
             return layout
         del _cache[key]                        # id reused by a new tensor
-    layout = build_bucketed_ell(ell_src, ell_w, plan, tail=tail)
+    layout = build_bucketed_ell(ell_src, ell_w, plan, bb=bb, tail=tail)
     _cache[key] = (tuple(_no_ref if a is None else weakref.ref(a)
                          for a in anchors), layout)
     while len(_cache) > _CACHE_MAX:

@@ -47,7 +47,7 @@ GATE_TREES = 64
 KERNEL = CudaKernel(
     "ell_relax_windowed",
     Path(__file__).resolve().parent / "csrc" / "ell_relax_windowed.cu",
-    argtypes=[ctypes.c_void_p] * 18 + [ctypes.c_longlong] * 6
+    argtypes=[ctypes.c_void_p] * 18 + [ctypes.c_longlong] * 7
     + [ctypes.c_double, ctypes.c_void_p])
 
 
@@ -136,7 +136,8 @@ def ell_relax_windowed(dist, mrank, prop, alive, layout, rank):
                 None if stats is None else stats.data_ptr(),
                 ctypes.cast(win_tiles, ctypes.c_void_p), nw,
                 s.bare_rows.shape[0], E, B, n, layout.window,
-                layout.gather_gain, current_stream(dist.device))
+                layout.block_cut, layout.gather_gain,
+                current_stream(dist.device))
         if stats is not None:
             tracing.window_stats(stats[:counts].view(2, nw, groups))
     return out_d, out_m

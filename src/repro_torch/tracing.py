@@ -38,13 +38,15 @@ How to read it::
   hub tail's included, or with no layout its ELL's);
   the layout's counters (`kernels.ell_relax.layout.BucketedEll.counters`):
   ``tail_arcs`` and ``split_rows`` (the hub tail's arcs and
-  destinations), ``lone_tiles`` and ``lone_tile_edges`` (the tiles of
-  one segment longer than the windowed kernel stages, and their edges:
-  every sweep folds each such tile with its whole block from device
-  memory, so these counts are also that fold's engagement, and
-  ``gated_windows`` below says where it read the mask first) and
+  destinations), ``block_tiles`` and ``block_tile_edges`` (the tiles of
+  one segment past the layout's cut, ``layout.block_cut``, and their
+  edges: every sweep folds each such tile with its whole block, so
+  these counts are that fold's engagement, and ``gated_windows`` below
+  says where it read the mask first), ``lone_tiles`` and
+  ``lone_tile_edges`` (those of them longer than the windowed kernel
+  stages, which the block reads from device memory) and
   ``longest_segment`` (with no layout, the adjacency has no tail, since
-  a tailed one always sweeps through its layout: 0 tail arcs, no lone
+  a tailed one always sweeps through its layout: 0 tail arcs, no block
   tile, and ``longest_segment`` None); where the windowed kernel
   packed its activity mask (`kernels.ell_relax.windowed.mask_pays`):
   ``mask_bits`` (the set bits: (live tree, source) pairs whose prop is
@@ -93,7 +95,8 @@ _PAIR = 1 << 32
 _MASK_FIELDS = ("mask_bits", "gated_windows", "windows")
 _NO_MASK = (None, None, None)
 #: the layout counters of a sweep that runs no layout (and so no tail)
-_NO_LAYOUT = {"tail_arcs": 0, "split_rows": 0, "lone_tiles": 0,
+_NO_LAYOUT = {"tail_arcs": 0, "split_rows": 0, "block_tiles": 0,
+              "block_tile_edges": 0, "lone_tiles": 0,
               "lone_tile_edges": 0, "longest_segment": None}
 
 

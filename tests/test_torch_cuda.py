@@ -415,12 +415,22 @@ def test_ell_relax_windowed_on_a_tailed_layout_equals_plain(
 #: the tile's edge buffer (the row's first, a partial), one of a length
 #: that neither 4 nor a block's 256 threads divide (mid-row: it resumes
 #: a partial and leaves one), and a row past kron22's longest segment
-#: (27,334) in every window, which resumes twice
+#: (27,334) in every window, which resumes twice; then segments past
+#: the layout's cut (`layout.block_cut`: 128 at B <= 4, the buffer at
+#: wider batches) that the buffer would hold, block tiles that are not
+#: lone at B <= 4: just past that cut and two longer, one a window,
+#: ragged (mid-row), exactly the buffer (the row's last), and a window
+#: that mixes them with a lone segment and short ones (rows 10-13)
 LONE_W = 40_960
 LONE_HUBS = {
     "just-past": {3: (port_layout.TILE_EDGES + 1, 0, 0)},
     "ragged": {1000: (0, 5003, 0)},
     "far-past": {77_777: (30_011, 30_011, 30_011)},
+    "block-just-past": {5: (129, 385, 513)},
+    "block-ragged": {2001: (0, 701, 0)},
+    "block-buffer": {60_000: (0, 0, port_layout.TILE_EDGES)},
+    "block-mixed": {10: (0, 300, 5), 11: (9, 1500, 0), 12: (0, 40, 0),
+                    13: (0, 3000, 200), 50_000: (0, 257, 0)},
 }
 
 
@@ -491,13 +501,18 @@ def gated_choices(prop, alive, lay):
 @pytest.mark.parametrize("hubs", list(LONE_HUBS))
 def test_ell_relax_windowed_folds_lone_segments_exactly(cuda_device, hubs, B,
                                                         density):
-    """A segment past the tile's edge buffer is folded by its whole block
-    (edges split over the threads, then an exact min / max-rank
-    reduction): the windowed kernel equals the plain sweep bit for bit,
-    at segment lengths just past the buffer, ragged, and past kron22's
-    longest across three windows; at B = 1, 4, 9 (across a mask group),
-    13 and 65 (past `GATE_TREES`: no mask), with retired trees; sparse
-    (gated where the mask pays) and dense (ungated)."""
+    """A segment past the layout's cut is a tile alone, folded by its
+    whole block (edges split over the threads, then an exact min /
+    max-rank reduction): the windowed kernel equals the plain sweep bit
+    for bit, at segment lengths just past the tile's edge buffer,
+    ragged, and past kron22's longest across three windows, and at
+    lengths the buffer would hold (just past the cut of batches of up to
+    4 trees, ragged, exactly the buffer, and a window mixing them with
+    short segments; under a wider batch's cut, the buffer, the same
+    segments take the tiled fold);
+    at B = 1, 4, 9 (across a mask group), 13 and 65 (past `GATE_TREES`:
+    no mask), with retired trees; sparse (gated where the mask pays) and
+    dense (ungated)."""
     rng = np.random.default_rng(B * 1000 + int(density * 100)
                                 + len(LONE_HUBS[hubs]))
     es, ew, tail = lone_adjacency(rng, LONE_HUBS[hubs], cuda_device)
@@ -505,11 +520,17 @@ def test_ell_relax_windowed_folds_lone_segments_exactly(cuda_device, hubs, B,
     dist, mrank, alive, rank = lone_state(rng, B, n, density, cuda_device)
     lay = sweep_layout(es, ew, bb=B, max_window=LONE_W, tail=tail)
     assert lay.num_windows == 3 and lay.window == LONE_W
-    counts = [c for cs in LONE_HUBS[hubs].values() for c in cs if c]
+    assert lay.block_cut == port_layout.block_cut(B)
+    counts = [c for cs in LONE_HUBS[hubs].values() for c in cs
+              if c > lay.block_cut]
     s = lay.segments
-    lone = s.tile_edges.diff() > port_layout.TILE_EDGES
-    assert sorted(s.tile_edges.diff()[lone].tolist()) == sorted(counts)
-    assert lay.counters["lone_tiles"] == len(counts)
+    ne = s.tile_edges.diff()
+    block = (s.tile_segs.diff() == 1) & (ne > lay.block_cut)
+    assert sorted(ne[block].tolist()) == sorted(counts)
+    assert lay.counters["block_tiles"] == len(counts)
+    assert lay.counters["block_tile_edges"] == sum(counts)
+    assert lay.counters["lone_tiles"] == sum(
+        c > port_layout.TILE_EDGES for c in counts)
     gated = gated_choices(dist, alive, lay)
     assert windowed.mask_pays(B, lay) == (B <= GATE_TREES)
     if B <= GATE_TREES:

@@ -283,7 +283,7 @@ def test_bucketed_arrays_equal_reference(n, deg, mw):
     plan = window_plan(n, max_window=mw)
     assert plan.num_windows > 1
     got = build_bucketed_ell(torch.as_tensor(es), torch.as_tensor(ew),
-                             plan)
+                             plan, bb=8)
     want = ref_ell.build_bucketed_ell(es, ew, ref_ell.window_plan(
         n, max_window=mw))
     assert_segments_hold_buckets(got, want)
@@ -328,11 +328,20 @@ def test_bucketed_layout_conserves_edges():
     assert 5 in bare and s.bare_rows.tolist() == bare.tolist()
 
 
+#: the "mid" kind's rows {row: in-edges in each of its three windows}:
+#: segments past the cut of a layout for 4 trees (`block_cut`, 128)
+#: and within the tile's edge buffer: just past 256, ragged, exactly the
+#: buffer, two of one row, and one at and one just past the cut
+MID_ROWS = {7: (300, 0, 0), 500: (0, 700, 0), 901: (0, 0, 257),
+            1200: (400, 0, 2048), 1201: (5, 128, 129)}
+
+
 def _tiled_ell(kind):
     """(ell_src, ell_w, max_window) for the tile tests: a random graph,
     one with a hub row whose in-edges in one window pass the edge
-    limit, one whose middle window holds no source, one with no finite
-    edge at all."""
+    limit, one with rows whose in-edges in a window pass the cut of a
+    layout for 4 trees but not the edge limit (`MID_ROWS`), one whose
+    middle window holds no source, one with no finite edge at all."""
     rng = np.random.default_rng(len(kind))
     if kind == "random":
         es, ew = _rand_ell(rng, 1500, 9)
@@ -346,6 +355,18 @@ def _tiled_ell(kind):
         es[7] = np.arange(n // 2)               # all in the first window
         ew[7] = rng.integers(1, 9, n // 2)
         return es, ew, n // 2
+    if kind == "mid":
+        n, w = 3000, 1024
+        es, ew = _rand_ell(rng, n, 2500, dens=0.002)
+        for row, counts in MID_ROWS.items():
+            es[row], ew[row] = 0, np.inf
+            k = 0
+            for wd, c in enumerate(counts):
+                es[row, k:k + c] = wd * w + rng.integers(
+                    0, min(w, n - wd * w), c)
+                ew[row, k:k + c] = rng.integers(1, 9, c)
+                k += c
+        return es, ew, w
     if kind == "gap":
         es, ew = _rand_ell(rng, 1000, 5)
         es = np.where((es >= 256) & (es < 512), es - 256, es)
@@ -354,14 +375,16 @@ def _tiled_ell(kind):
     return es, np.full_like(ew, np.inf), 128
 
 
-@pytest.mark.parametrize("kind", ["random", "dense", "hub", "gap",
+@pytest.mark.parametrize("kind", ["random", "dense", "hub", "mid", "gap",
                                   "edgeless"])
 def test_tiles_cover_segments_within_limits(kind):
     """The kernel's tiles, recomputed from ``seg_ptr`` with numpy: every
-    segment lies in exactly one tile, a tile lies in one window, no
-    tile passes `TILE_SEGS` or `TILE_EDGES` but a lone longer segment,
-    each tile is as long as the limits allow (the greedy cut), and the
-    tile-relative ends rebuild ``seg_ptr``."""
+    segment lies in exactly one tile, a tile lies in one window, every
+    segment past the layout's cut (`block_cut`) is alone in its tile,
+    no other tile passes `TILE_SEGS` or `TILE_EDGES`, each of them is as
+    long as the limits allow (the greedy cut, which ends early only
+    before a segment past the cut), and the tile-relative ends rebuild
+    ``seg_ptr``; the block-tile counters count them."""
     es, ew, mw = _tiled_ell(kind)
     lay = sweep_layout(torch.as_tensor(es), torch.as_tensor(ew), bb=4,
                        max_window=mw)
@@ -372,6 +395,9 @@ def test_tiles_cover_segments_within_limits(kind):
     ends = s.seg_end.numpy()
     assert np.array_equal(s.tile_edges.numpy(), ptr[ts])
     TS, TE = port_layout.TILE_SEGS, port_layout.TILE_EDGES
+    LE = lay.block_cut
+    assert LE == port_layout.block_cut(4) == port_layout.BLOCK_EDGES
+    length = np.diff(ptr)
     assert s.seg_end.dtype == torch.int32 and ends.shape == (S,)
     assert ts[0] == 0 and ts[-1] == S and (np.diff(ts) > 0).all()
     assert len(s.win_tiles) == lay.num_windows + 1
@@ -380,11 +406,23 @@ def test_tiles_cover_segments_within_limits(kind):
     for a, b in zip(ts[:-1], ts[1:]):
         ns, ne = b - a, ptr[b] - ptr[a]
         assert (ns <= TS and ne <= TE) or ns == 1
-        if b not in win_end:            # the next segment did not fit
-            assert ns == TS or ptr[b + 1] - ptr[a] > TE
+        assert ns == 1 or (length[a:b] <= LE).all()
+        if b not in win_end and not (ns == 1 and ne > LE):
+            # the next segment did not fit, or is a block tile
+            assert ns == TS or ptr[b + 1] - ptr[a] > TE or length[b] > LE
         assert np.array_equal(ptr[a] + ends[a:b], ptr[a + 1:b + 1])
     lone = [(a, b) for a, b in zip(ts[:-1], ts[1:]) if ptr[b] - ptr[a] > TE]
     assert bool(lone) == (kind == "hub")
+    block = [a for a, b in zip(ts[:-1], ts[1:])
+             if b - a == 1 and length[a] > LE]
+    assert bool(block) == (kind in ("hub", "mid"))
+    assert len(block) == int((length > LE).sum())
+    assert lay.counters["block_tiles"] == len(block)
+    assert lay.counters["block_tile_edges"] == int(length[length > LE].sum())
+    if kind == "mid":
+        want = sorted(c for cs in MID_ROWS.values() for c in cs if c > LE)
+        assert sorted(length[block].tolist()) == want
+        assert lay.counters["lone_tiles"] == 0
     if kind == "gap":
         assert s.win_tiles[1] == s.win_tiles[2]     # window 1 is empty
     if kind == "edgeless":
@@ -396,10 +434,11 @@ def test_tiles_refuse_offsets_past_i32():
     wraps in the kernel."""
     ptr = torch.tensor([0, 2 ** 31 + 5], dtype=torch.int64)
     with pytest.raises(ValueError, match="i32"):
-        port_layout._tiles(ptr, torch.zeros(1, dtype=torch.int64), [0, 1])
+        port_layout._tiles(ptr, torch.zeros(1, dtype=torch.int64), [0, 1],
+                           port_layout.BLOCK_EDGES)
     end, tiles, edges, win = port_layout._tiles(
         torch.tensor([0, 2 ** 31 - 1], dtype=torch.int64),
-        torch.zeros(1, dtype=torch.int64), [0, 1])
+        torch.zeros(1, dtype=torch.int64), [0, 1], port_layout.BLOCK_EDGES)
     assert end.tolist() == [2 ** 31 - 1] and tiles.tolist() == [0, 1]
     assert edges.tolist() == [0, 2 ** 31 - 1] and win == [0, 1]
 
@@ -410,9 +449,47 @@ def test_tile_limits_match_kernel_source():
     from pathlib import Path
     src = (Path(port_layout.__file__).parent / "csrc"
            / "ell_relax_windowed.cu").read_text()
-    for name in ("TILE_SEGS", "TILE_EDGES"):
+    for name in ("TILE_SEGS", "TILE_EDGES", "BLOCK_TREES"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == getattr(port_layout, name), name
+
+
+def test_block_cut_holds_up_to_its_group_of_trees():
+    """The cut is `BLOCK_EDGES` for batches of up to `BLOCK_TREES`
+    trees, else the staging buffer: a layout for a wider batch is cached
+    apart, keeps the same segments, leaves alone only those no tile can
+    hold (here none), and so keeps each window's segments in destination
+    order, tiled greedily as if no segment were long."""
+    cut = port_layout.block_cut
+    LE, LT = port_layout.BLOCK_EDGES, port_layout.BLOCK_TREES
+    TE = port_layout.TILE_EDGES
+    assert [cut(b) for b in (1, LT - 1, LT, LT + 1, 4 * LT, 10 ** 6)] == [
+        LE, LE, LE, TE, TE, TE]
+    es, ew, mw = _tiled_ell("mid")
+    es, ew = torch.as_tensor(es), torch.as_tensor(ew)
+    narrow = sweep_layout(es, ew, bb=4, max_window=mw)
+    wide = sweep_layout(es, ew, bb=16, max_window=mw)
+    assert wide is not narrow and wide.block_cut == cut(16) == TE
+    assert sweep_layout(es, ew, bb=16, max_window=mw) is wide
+    for f in ("seg_row", "edge_src", "edge_w"):
+        # the same segments, in another order (the long ones lead)
+        assert getattr(wide.segments, f).numel() == \
+            getattr(narrow.segments, f).numel()
+    lengths = sorted(c for cs in MID_ROWS.values() for c in cs)
+    for lay in (narrow, wide):
+        want = [c for c in lengths if c > lay.block_cut]
+        assert lay.counters["block_tiles"] == len(want)
+        assert lay.counters["block_tile_edges"] == sum(want)
+    assert narrow.counters["block_tiles"] > wide.counters["block_tiles"] == 0
+    s = wide.segments
+    rows = s.seg_row.numpy()
+    for wd in range(wide.num_windows):
+        assert (np.diff(rows[s.win_segs[wd]:s.win_segs[wd + 1]]) > 0).all()
+    end, tiles, edges, win = port_layout._tiles(
+        s.seg_ptr, torch.repeat_interleave(
+            torch.arange(wide.num_windows), torch.tensor(s.win_segs).diff()),
+        s.win_segs, TE)
+    assert torch.equal(tiles, s.tile_segs) and win == s.win_tiles
 
 
 def lattice_ell(side):

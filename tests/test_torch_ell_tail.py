@@ -17,7 +17,8 @@ benchmark's plain reference.
    PLaNT, repair) on a tailed graph equals its build of the same arcs
    in one ELL as wide as the hub's degree, and the directed build the
    reference's; the build fingerprint covers the tail;
-4. the recorder counts the tail's arcs and the lone tiles.
+4. the recorder counts the tail's arcs, the block tiles and the lone
+   tiles.
 """
 
 import dataclasses
@@ -153,6 +154,7 @@ def test_graph_under_the_cap_keeps_its_arrays_and_layout():
         x, y = getattr(lay.segments, f), getattr(bare.segments, f)
         assert (x == y if isinstance(x, list) else torch.equal(x, y)), f
     assert lay.counters == dict(bare.counters, tail_arcs=0, split_rows=0,
+                                block_tiles=0, block_tile_edges=0,
                                 lone_tiles=0, lone_tile_edges=0)
 
 
@@ -391,21 +393,27 @@ def test_fingerprint_covers_the_tail():
 # ---------------------------------------------------------- 4. counters
 
 def test_recorder_counts_the_tail_and_the_lone_tiles():
-    """A star of 4,999 spokes on 5,000 vertices in two windows of 2,560:
-    the hub's in-edges are two segments past `TILE_EDGES` (2,559 and
-    2,440 edges), each a lone tile; a fixpoint through the CPU's
-    one-window layout counts the tail's arcs and its one lone tile."""
-    n = 5000
+    """A star of 4,999 spokes on 5,000 vertices in two windows of 2,560,
+    and 400 spokes more from vertex 1: the hub's in-edges are two
+    segments past `TILE_EDGES` (2,559 and 2,440 edges), each a lone
+    tile, and vertex 1's (from the hub and its 400) one of 401 edges
+    past the layout's cut, a block tile that is not lone; a fixpoint
+    through the CPU's one-window layout counts the tail's arcs, its two
+    block tiles and its one lone tile."""
+    n, mid = 5000, 400
     spokes = np.arange(1, n, dtype=np.int32)
-    g = from_edges(n, np.zeros(n - 1, np.int32), spokes,
-                   np.ones(n - 1, np.float32))
-    assert g.tail_arcs == n - 1 - ELL_CAP
+    g = from_edges(n, np.r_[np.zeros(n - 1), np.ones(mid)].astype(np.int32),
+                   np.r_[spokes, np.arange(2, 2 + mid)].astype(np.int32),
+                   np.ones(n - 1 + mid, np.float32))
+    assert g.tail_arcs == n - 1 - ELL_CAP + mid + 1 - ELL_CAP
     a = device_arrays(g, np.arange(n, dtype=np.int32), "cpu")
     lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=4096,
                        tail=a.tail)
     assert lay.num_windows == 2 and lay.window == 2560
     assert 2559 > TILE_EDGES and 2440 > TILE_EDGES
-    want = {"tail_arcs": n - 1 - ELL_CAP, "split_rows": 1,
+    assert lay.block_cut < mid + 1 <= TILE_EDGES
+    want = {"tail_arcs": g.tail_arcs, "split_rows": 2,
+            "block_tiles": 3, "block_tile_edges": n - 1 + mid + 1,
             "lone_tiles": 2, "lone_tile_edges": n - 1,
             "longest_segment": 2559}
     assert lay.counters == want
@@ -430,26 +438,29 @@ def test_recorder_counts_the_tail_and_the_lone_tiles():
     assert windowed[0]["active_edges"] == 4 * g.m
     assert one.num_windows == 1
     assert {k: plain[0][k] for k in want} == one.counters == dict(
-        want, lone_tiles=1, longest_segment=n - 1)
+        want, block_tiles=2, lone_tiles=1, longest_segment=n - 1)
     # one sweep: root 1 reaches the hub through the tail's first arc,
     # the hub every spoke
     assert st.dist[1, 0] == 1 and st.dist[0, n - 1] == 1
 
 
 def test_lone_segments_lead_their_windows():
-    """Each window lists its segments past `TILE_EDGES` first, longest
-    first (hub 40's 2,559 before hub 10's 2,298, against vertex order),
-    then the rest by ascending destination, each segment's edges its
-    row's in its window."""
+    """Each window lists its segments past the layout's cut first,
+    longest first (hub 40's 2,559 before hub 10's 2,298, against vertex
+    order; in the second window hub 40's 2,440 before vertex 20's ~700,
+    which passes the cut but not `TILE_EDGES`), then the rest by
+    ascending destination, each segment's edges its row's in its
+    window."""
     n = 5000
     rng = np.random.default_rng(3)
     every = np.setdiff1d(np.arange(n), [40])
     some = np.arange(1, 2300)
     some = some[some != 10]
+    mid = np.arange(2600, 3300)
     extra = rng.integers(0, n, (2, 3 * n))
     src = np.concatenate([np.full(len(every), 40), np.full(len(some), 10),
-                          extra[0]]).astype(np.int32)
-    dst = np.concatenate([every, some, extra[1]]).astype(np.int32)
+                          np.full(len(mid), 20), extra[0]]).astype(np.int32)
+    dst = np.concatenate([every, some, mid, extra[1]]).astype(np.int32)
     w = rng.integers(1, 9, len(src)).astype(np.float32)
     keep = src != dst
     g = from_edges(n, src[keep], dst[keep], w[keep])
@@ -457,16 +468,19 @@ def test_lone_segments_lead_their_windows():
     lay = sweep_layout(a.ell_src, a.ell_w, bb=4, max_window=4096,
                        tail=a.tail)
     assert lay.num_windows == 2 and lay.counters["lone_tiles"] == 3
+    assert lay.counters["block_tiles"] == 4
     s = lay.segments
     rows, length = s.seg_row.numpy(), s.seg_ptr.diff().numpy()
     for wd in range(2):
         lo, hi = s.win_segs[wd], s.win_segs[wd + 1]
-        lone = length[lo:hi] > TILE_EDGES
+        lone = length[lo:hi] > lay.block_cut
         k = int(lone.sum())
-        assert lone[:k].all() and not lone[k:].any()
+        assert k == 2 and lone[:k].all() and not lone[k:].any()
         assert (np.diff(length[lo:lo + k]) <= 0).all()
         assert (np.diff(rows[lo + k:hi]) > 0).all()
     assert rows[s.win_segs[0]:s.win_segs[0] + 2].tolist() == [40, 10]
+    assert rows[s.win_segs[1]:s.win_segs[1] + 2].tolist() == [40, 20]
+    assert lay.block_cut < length[s.win_segs[1] + 1] <= TILE_EDGES
     # the same arcs: each segment's edges are its row's, in its window
     seg_of = np.repeat(np.arange(len(rows)), length)
     esrc, ew = s.edge_src.numpy(), s.edge_w.numpy()
